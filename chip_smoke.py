@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SST inference path on one CUDA card.
+"""Drive the PyTorch port's SST inference and training paths on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -24,7 +25,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (TF32 off) with the kernel and with the plain attention, same weights,
    compared at a stated tolerance; and the same frame through the port on
    the CPU (the path the CPU tests hold to the JAX package).
-4. Print the kernels' JSON line, then as the last line
+4. Hold the window-attention backward kernel against its plain PyTorch
+   version (``window_attention_bwd_plain``) on the card at both production
+   shapes and the other head dims, in float32 (max abs err <= 1e-4) and
+   bfloat16 (max abs err <= 2^-7 * max|ref| per output, compared in
+   float32), on the forward phase's inputs (one window in eight fully
+   masked) with g ~ N(0, 1): in fully masked windows dq = dk = 0 and dv is
+   the mean of g. Time the kernel, the plain version and SDPA's backward
+   (forward+backward through autograd minus forward; a yardstick only).
+5. Train full-width SST in bfloat16 through the port's training CLI
+   (``tools/train.py sst``'s ``main``) for 6 steps on 3 file-backed
+   synthetic frames at production scale (``write_synthetic_frames``:
+   120000 points, 40 boxes). The launch counts are set to 0 just before
+   and read after every step: each step must launch exactly 24 forward and
+   24 backward kernels (12 per level). Every logged loss and ``grad_norm``
+   must be finite, the parameters must have moved, and a checkpoint must
+   exist. Prints ms/step (median of steps 3-6) and the peak memory.
+6. One dense frame through ``SSTDetector.loss`` and backward in float32
+   (TF32 off), at full width with the depth cut to 2 blocks (the time
+   limit), with the kernels and with ``use_pallas_attention=False`` (the
+   einsum differentiated by autograd), same weights: every parameter's
+   gradient must agree within 1e-3 * its max |grad| + 1e-5 * the largest
+   |grad| of the model.
+7. Print the kernels' JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where ``torch.cuda.is_available()``
@@ -32,12 +55,16 @@ is false or the port's package is missing.
 """
 import dataclasses
 import json
+import os
 import statistics
 import sys
+import tempfile
 import time
 
 import torch
 
+from objectcentricocccompletion_torch.data.frame_dataset import (
+    write_synthetic_frames)
 from objectcentricocccompletion_torch.evalx.detector_eval import (
     make_predict_fn)
 from objectcentricocccompletion_torch.models.sst_detector import SSTDetector
@@ -45,6 +72,7 @@ from objectcentricocccompletion_torch.ops import _build
 from objectcentricocccompletion_torch.ops import voxelize as vx
 from objectcentricocccompletion_torch.ops import window_attention as wa
 from objectcentricocccompletion_torch.tools import benchmark as bench
+from objectcentricocccompletion_torch.tools import train as train_cli
 from objectcentricocccompletion_torch.utils.device import card_info
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s; bf16 tensor-core
@@ -62,6 +90,20 @@ FP32_MODEL_ATOL = 1e-4
 # the same, plus cuDNN against oneDNN convolutions and GEMMs
 FP32_CPU_ATOL = 1e-3
 TIMED_FRAMES = 5
+# backward kernel vs plain: float32 sums in another order over T keys
+BWD_ATOL_FP32 = 1e-4
+# bf16: one rounding of each output (8 bits) on values up to max|ref|
+BWD_RTOL_BF16 = 2 ** -7
+TRAIN_STEPS = 6
+TRAIN_TIMED_FROM = 3            # steps 1-2 build the model and warm up
+# fp32 gradients, kernels vs einsum autograd, full width, depth cut to 2
+# blocks: float32 sums in another order through 4 attention layers, the
+# neck and the loss, per parameter; plus a floor on the model's largest
+# gradient for the attention key biases, whose exact gradient is 0 (the
+# softmax is invariant to them) and whose float32 values are noise
+GRAD_RTOL = 1e-3
+GRAD_FLOOR = 1e-5
+GRAD_CHECK_BLOCKS = 2
 
 
 def log(msg):
@@ -97,10 +139,14 @@ def attention_inputs(W, T, C, dtype, gen):
     return q, k, v, mask.contiguous()
 
 
-def attention_bound_ms(W, T, dtype):
+def attention_bound_ms(W, T, dtype, tensors=4, products=2):
+    """The least time for ``tensors`` [W, T, C] tensors moved once (read or
+    written) plus the mask, and ``products`` products of 2*T^2*hd per
+    window and head. Forward: q, k, v, out; q.k and p.v. Backward: q, k, v,
+    g, dq, dk, dv; five products."""
     elt = torch.finfo(dtype).bits // 8
-    nbytes = 4 * W * T * C * elt + W * T          # q, k, v, out + mask
-    flops = 4 * W * T * T * C                     # q.k and p.v
+    nbytes = tensors * W * T * C * elt + W * T
+    flops = 2 * products * W * T * T * C
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -155,6 +201,84 @@ def phase_kernel_vs_plain():
                 f" plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound "
                 f"{bound_ms:.4f} ms ({bound_by}); occupied tokens "
                 f"{mask.float().mean().item():.3f}")
+    return rows
+
+
+def check_bwd_against_plain(W, T, C, H, dtype, gen):
+    """Backward kernel vs plain on one random input; returns the inputs
+    and the largest error over dq, dk, dv (each against its tolerance)."""
+    q, k, v, mask = attention_inputs(W, T, C, dtype, gen)
+    g = torch.randn(W, T, C, generator=gen, device="cuda").to(dtype)
+    got = wa._bwd_kernel(q, k, v, mask, g, H)
+    torch.cuda.synchronize()
+    ref = wa.window_attention_bwd_plain(q, k, v, mask, g, H)
+    full = ~mask.any(1)
+    mean_g = g[full].float().mean(1, keepdim=True)
+    worst = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        a, b = a.float(), b.float()
+        tol = (BWD_ATOL_FP32 if dtype == torch.float32
+               else BWD_RTOL_BF16 * b.abs().max().item())
+        err = (a - b).abs().max().item()
+        # fully masked windows: dq = dk = 0 exactly, dv = the mean of g
+        err_full = (a[full].abs().max().item() if name != "dv" else
+                    (a[full] - mean_g).abs().max().item())
+        if not (err <= tol and err_full <= tol):
+            raise AssertionError(
+                f"backward kernel vs plain {name} W={W} T={T} C={C} H={H} "
+                f"{dtype}: max abs err {err}, fully masked {err_full}, "
+                f"tolerance {tol}")
+        worst = max(worst, err)
+    return (q, k, v, mask, g), worst
+
+
+def sdpa_bwd_ms(q, k, v, mask, g, H):
+    """SDPA's backward with the boolean mask: forward+backward through
+    autograd minus the forward alone (a yardstick; the port never calls
+    it)."""
+    W, T, c = q.shape
+    hd = c // H
+    q4, k4, v4, g4 = (x.view(W, T, H, hd).transpose(1, 2).contiguous()
+                      for x in (q, k, v, g))
+    q4, k4, v4 = (x.requires_grad_() for x in (q4, k4, v4))
+    m4 = mask[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def fwd():
+        with torch.no_grad():
+            sdpa(q4, k4, v4, attn_mask=m4)
+
+    def fwd_bwd():
+        torch.autograd.grad(sdpa(q4, k4, v4, attn_mask=m4), (q4, k4, v4),
+                            g4)
+    return median_ms(fwd_bwd) - median_ms(fwd)
+
+
+def phase_bwd_kernel_vs_plain():
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for W, T, c, h in OTHER_HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            _, err = check_bwd_against_plain(W, T, c, h, dtype, gen)
+            log(f"attention bwd W={W} T={T} C={c} H={h} {str(dtype)[6:]}: "
+                f"max_abs_err {err:.3e}")
+    rows = {}
+    for W, T in ATTN_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            (q, k, v, mask, g), err = check_bwd_against_plain(
+                W, T, C, H, dtype, gen)
+            ms = median_ms(lambda: wa._bwd_kernel(q, k, v, mask, g, H))
+            plain_ms = median_ms(
+                lambda: wa.window_attention_bwd_plain(q, k, v, mask, g, H))
+            library_ms = sdpa_bwd_ms(q, k, v, mask, g, H)
+            bound_ms, bound_by = attention_bound_ms(W, T, dtype, tensors=7,
+                                                    products=5)
+            rows[(T, dtype)] = dict(max_abs_err=err, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by, library_ms=library_ms)
+            log(f"attention bwd W={W} T={T} {str(dtype)[6:]}: max_abs_err "
+                f"{err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                f"sdpa bwd {library_ms:.4f} ms bound {bound_ms:.4f} ms "
+                f"({bound_by})")
     return rows
 
 
@@ -262,6 +386,120 @@ def phase_fp32_model_check(dev):
     compare_maps("fp32 model, card vs CPU", a, c, FP32_CPU_ATOL)
 
 
+def phase_training(dev):
+    """Full-width bf16 training through the port's CLI; returns the launch
+    counts of the run (forward, backward)."""
+    per_level = 2 * bench.sst_config().sst.num_blocks   # one per layer
+    expect = {32: per_level, 144: per_level}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "frames")
+        t = time.perf_counter()
+        infos = write_synthetic_frames(data, num_frames=3, num_points=120000,
+                                       num_boxes=40, seed=0)
+        log(f"training: wrote 3 synthetic frames in "
+            f"{time.perf_counter() - t:.1f} s")
+        work = os.path.join(tmp, "work")
+        steps = []
+
+        def hook(step, metrics):
+            torch.cuda.synchronize()
+            steps.append((step, time.perf_counter(), dict(wa.LAUNCHES),
+                          dict(wa.BWD_LAUNCHES)))
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        wa.LAUNCHES.clear()
+        wa.BWD_LAUNCHES.clear()
+        t0 = time.perf_counter()
+        done = train_cli.main(
+            ["sst", "--infos", infos, "--data-root", data, "--total-steps",
+             str(TRAIN_STEPS), "--dtype", "bfloat16", "--log-interval", "1",
+             "--work-dir", work, "--device", "cuda", "--seed", "0"],
+            hooks=[hook])
+        fwd, bwd = dict(wa.LAUNCHES), dict(wa.BWD_LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        if done != TRAIN_STEPS or len(steps) != TRAIN_STEPS:
+            raise AssertionError(f"training ran {len(steps)} steps")
+        prev = (t0, {}, {})
+        times = []
+        for step, now, f, b in steps:
+            df = {T: n - prev[1].get(T, 0) for T, n in f.items()}
+            db = {T: n - prev[2].get(T, 0) for T, n in b.items()}
+            if df != expect or db != expect:
+                raise AssertionError(f"training step {step}: forward "
+                                     f"launches {df}, backward {db}, "
+                                     f"expected {expect} each")
+            times.append((now - prev[0]) * 1e3)
+            prev = (now, f, b)
+        rows = [json.loads(line) for line in
+                open(os.path.join(work, "metrics.jsonl"))]
+        keys = ("loss", "loss_cls", "loss_bbox", "loss_dir", "grad_norm")
+        if [r["step"] for r in rows] != list(range(1, TRAIN_STEPS + 1)) or \
+                not all(abs(r[k]) < float("inf") for r in rows for k in keys):
+            raise AssertionError(f"training metrics {rows}")
+        for r in rows:
+            log("training step " + " ".join(
+                f"{k}={r[k]}" for k in ("step",) + keys + ("num_pos_anchors",
+                                                           "frames_per_sec")))
+        ckpt = os.path.join(work, "ckpt", f"step_{TRAIN_STEPS}.pt")
+        if not os.path.exists(ckpt):
+            raise AssertionError(f"no checkpoint at {ckpt}")
+        trained = torch.load(ckpt, map_location="cpu",
+                             weights_only=True)["model"]
+    # the CLI's init: the same config and seed, on the CPU
+    init = SSTDetector(train_cli.sst_train_config(dtype="bfloat16"), "cpu",
+                       torch.Generator().manual_seed(0)).state_dict()
+    # the attention key biases may stay: their exact gradient is 0 (the
+    # softmax is invariant to them) and biases take no weight decay
+    same = [n for n, p in init.items() if torch.equal(p, trained[n])]
+    if any(not n.endswith(".k.bias") for n in same):
+        raise AssertionError(f"parameters did not move: {same}")
+    timed = times[TRAIN_TIMED_FROM - 1:]
+    step_ms = statistics.median(timed)
+    log(f"training: {TRAIN_STEPS} bf16 steps at full width, "
+        f"{step_ms:.3f} ms/step (median of steps {TRAIN_TIMED_FROM}-"
+        f"{TRAIN_STEPS}: {[round(x, 3) for x in timed]}; all "
+        f"{[round(x, 3) for x in times]}), peak memory {peak_gib:.3f} GiB, "
+        f"launches forward {fwd} backward {bwd}, "
+        f"{len(init) - len(same)} of {len(init)} parameter tensors moved; "
+        f"card {card_info()}")
+    return fwd, bwd
+
+
+def phase_fp32_grad_check(dev):
+    """Gradients of one dense frame's loss in float32, the kernels against
+    the einsum autograd, at full width with the depth cut."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = bench.sst_config("float32")
+    cfg = dataclasses.replace(cfg, sst=dataclasses.replace(
+        cfg.sst, num_blocks=GRAD_CHECK_BLOCKS))
+    kern = bench.build_sst(cfg, dev, seed=0).train()
+    plain = SSTDetector(dataclasses.replace(cfg, sst=dataclasses.replace(
+        cfg.sst, use_pallas_attention=False)), device=dev).train()
+    plain.load_state_dict(kern.state_dict())
+    b = bench.train_batch(cfg, dev, 150000, seed=0)
+    frame = [x[0] for x in b]
+    grads, losses = [], []
+    for model in (kern, plain):
+        out = model.loss(*frame)
+        out["loss"].backward()
+        losses.append(out["loss"].item())
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    scale = max(g.abs().max().item() for g in grads[1].values())
+    worst = (0.0, "")
+    for n, ref in grads[1].items():
+        err = (grads[0][n] - ref).abs().max().item()
+        tol = GRAD_RTOL * ref.abs().max().item() + GRAD_FLOOR * scale
+        if not err <= tol:
+            raise AssertionError(f"fp32 gradient {n}: kernels vs einsum "
+                                 f"max abs err {err} > {tol}")
+        worst = max(worst, (err / tol, n))
+    log(f"fp32 gradients ({GRAD_CHECK_BLOCKS} blocks, full width): loss "
+        f"{losses[0]:.6f} (kernels) vs {losses[1]:.6f} (einsum); "
+        f"{len(grads[1])} parameters within tolerance, worst {worst[1]} at "
+        f"{worst[0]:.3f} of it; largest |grad| {scale:.3e}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -287,16 +525,33 @@ def main():
     t = time.perf_counter()
     phase_fp32_model_check(dev)
     log(f"phase fp32 check: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    bwd_rows = phase_bwd_kernel_vs_plain()
+    log(f"phase backward kernel-vs-plain: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    train_fwd, train_bwd = phase_training(dev)
+    log(f"phase training: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_fp32_grad_check(dev)
+    log(f"phase fp32 gradient check: {time.perf_counter() - t:.1f} s")
 
+    src = "objectcentricocccompletion_torch/csrc/"
     kernels = []
     for W, T in ATTN_SHAPES:
-        row = rows[(T, torch.bfloat16)]
         kernels.append(dict(
             name=f"window_attention_T{T}", route="cuda",
-            source="objectcentricocccompletion_torch/csrc/window_attention.cu",
+            source=src + "window_attention.cu",
             replaces="objectcentricocccompletion_tpu/ops/pallas_attention.py"
                      ":25",
-            launches=launches[T], **row))
+            launches=launches[T] + train_fwd[T],
+            **rows[(T, torch.bfloat16)]))
+    for W, T in ATTN_SHAPES:
+        kernels.append(dict(
+            name=f"window_attention_bwd_T{T}", route="cuda",
+            source=src + "window_attention_bwd.cu",
+            replaces="benchmarks/repro_attn_bwd.py:124 (_attn_bwd_kernel) "
+                     "and :40 (_attn_bwd_kernel_fullstore)",
+            launches=train_bwd[T], **bwd_rows[(T, torch.bfloat16)]))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,70 +29,18 @@
 // blocks of one window are neighbours in the grid. The arithmetic runs on the
 // CUDA cores, not the tensor cores: a later version can move the two products
 // to wgmma and the loads to TMA.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "window_rows.cuh"
 
 namespace {
 
-constexpr float kLog2e = 1.4426950408889634f;
-// The JAX package's masked logit (-1e9), in the log2 domain used below.
-constexpr float kMaskedLogit2 = -1e9f * kLog2e;
+using window_rows::kLog2e;
+using window_rows::kMaskedLogit2;
+using window_rows::axpy_row;
+using window_rows::dot_row;
+using window_rows::load_row;
+using window_rows::store_row;
+
 constexpr int kMaxThreads = 512;
-
-template <int HD>
-__device__ __forceinline__ void load_row(const float* __restrict__ src,
-                                         float (&dst)[HD]) {
-#pragma unroll
-  for (int i = 0; i < HD; i += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(src + i);
-    dst[i] = x.x;
-    dst[i + 1] = x.y;
-    dst[i + 2] = x.z;
-    dst[i + 3] = x.w;
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ src,
-                                         float (&dst)[HD]) {
-#pragma unroll
-  for (int i = 0; i < HD; i += 8) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + i);
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(p[j]);
-      dst[i + 2 * j] = f.x;
-      dst[i + 2 * j + 1] = f.y;
-    }
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ void store_row(float* __restrict__ dst,
-                                          const float (&src)[HD]) {
-#pragma unroll
-  for (int i = 0; i < HD; i += 4) {
-    *reinterpret_cast<float4*>(dst + i) =
-        make_float4(src[i], src[i + 1], src[i + 2], src[i + 3]);
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ void store_row(__nv_bfloat16* __restrict__ dst,
-                                          const float (&src)[HD]) {
-#pragma unroll
-  for (int i = 0; i < HD; i += 8) {
-    uint4 raw;
-    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      p[j] = __floats2bfloat162_rn(src[i + 2 * j], src[i + 2 * j + 1]);
-    }
-    *reinterpret_cast<uint4*>(dst + i) = raw;
-  }
-}
 
 // Grid: one block per (window, head), heads fastest. Block: T threads rounded
 // up to a warp; thread t < T owns query row t. Dynamic shared memory:
@@ -143,16 +91,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   for (int d = 0; d < HD; ++d) acc[d] = 0.0f;
 
   for (int j = 0; j < T; ++j) {
-    const float4* kr = reinterpret_cast<const float4*>(ks + j * HD);
-    float s = 0.0f;
-#pragma unroll
-    for (int i = 0; i < HD / 4; ++i) {
-      const float4 kk = kr[i];
-      s = fmaf(qr[4 * i], kk.x, s);
-      s = fmaf(qr[4 * i + 1], kk.y, s);
-      s = fmaf(qr[4 * i + 2], kk.z, s);
-      s = fmaf(qr[4 * i + 3], kk.w, s);
-    }
+    float s = dot_row<HD>(qr, ks + j * HD);
     s = valid[j] != 0.0f ? s : kMaskedLogit2;
     if (s > mx) {
       const float c = exp2f(mx - s);
@@ -163,15 +102,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
     const float p = exp2f(s - mx);
     denom += p;
-    const float4* vr = reinterpret_cast<const float4*>(vs + j * HD);
-#pragma unroll
-    for (int i = 0; i < HD / 4; ++i) {
-      const float4 vv = vr[i];
-      acc[4 * i] = fmaf(p, vv.x, acc[4 * i]);
-      acc[4 * i + 1] = fmaf(p, vv.y, acc[4 * i + 1]);
-      acc[4 * i + 2] = fmaf(p, vv.z, acc[4 * i + 2]);
-      acc[4 * i + 3] = fmaf(p, vv.w, acc[4 * i + 3]);
-    }
+    axpy_row<HD>(p, vs + j * HD, acc);
   }
   denom = fmaxf(denom, 1e-20f);
 #pragma unroll

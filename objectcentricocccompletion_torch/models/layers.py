@@ -44,6 +44,21 @@ def layer_norm(layer: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
                         layer.bias, layer.eps)
 
 
+def layer_norm_one_pass(layer: nn.LayerNorm, x: torch.Tensor
+                        ) -> torch.Tensor:
+    """flax's ``LayerNorm`` arithmetic, step for step: the variance in one
+    pass as ``max(E[x^2] - E[x]^2, 0)``, in float32, differentiated by
+    autograd through that formula. Where the inputs' mean across channels is
+    large next to their spread (the VFE's first layer reads raw
+    coordinates), its gradient and that of :func:`layer_norm` differ in
+    float32 by more than 1e-4; this form keeps the JAX package's."""
+    x = x.float()
+    mean = x.mean(-1, keepdim=True)
+    var = ((x * x).mean(-1, keepdim=True) - mean.square()).clamp(min=0)
+    mul = torch.rsqrt(var + layer.eps) * layer.weight
+    return (x - mean) * mul + layer.bias
+
+
 def lecun_normal_(weight: torch.Tensor, fan_in: int,
                   generator: torch.Generator) -> None:
     """flax's default kernel init (variance 1/fan_in, truncated at 2 std)."""

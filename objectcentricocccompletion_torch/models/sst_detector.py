@@ -85,6 +85,19 @@ class SSTDetector(nn.Module):
         return dict(cls=cls.float(), reg=reg.float(), dir=dirc.float(),
                     bev_hw=tuple(feat.shape[2:]))
 
+    def loss(self, points: torch.Tensor, mask: torch.Tensor,
+             gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+             gt_valid: torch.Tensor) -> dict:
+        """One frame's losses: points [N, 3+F], mask [N], gt_boxes [M, 7],
+        gt_labels [M], gt_valid [M] -> dict of float32 scalars ``loss_cls``,
+        ``loss_bbox``, ``loss_dir``, ``loss`` and the count
+        ``num_pos_anchors``."""
+        out = self(points, mask)
+        return ah.anchor_head_loss(out["cls"], out["reg"], out["dir"],
+                                   self.anchors, gt_boxes, gt_labels,
+                                   gt_valid, self.cfg.anchors,
+                                   self.cfg.num_classes)
+
     def predict(self, points: torch.Tensor, mask: torch.Tensor,
                 max_out: int = 500):
         """-> (boxes [K, 7], scores [K], labels [K], valid [K])."""

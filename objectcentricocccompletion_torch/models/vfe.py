@@ -5,7 +5,9 @@ Per-point decoration (offset to the voxel's point mean, offset to the voxel
 centre), then Linear -> LayerNorm -> ReLU layers with a per-voxel max and a
 broadcast-concat between layers; the voxel feature is the last layer's
 per-voxel max. The Linear layers run in the computation dtype; decoration
-and LayerNorm statistics stay float32.
+and LayerNorm statistics stay float32, the variance in flax's one pass
+(``layer_norm_one_pass``), which keeps the first layer's gradient within
+the JAX package's.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 from torch import nn
 
 from ..ops import voxelize as vx
-from .layers import LN_EPS, dense, layer_norm
+from .layers import LN_EPS, dense, layer_norm_one_pass
 
 
 class DynamicVFE(nn.Module):
@@ -58,7 +60,8 @@ class DynamicVFE(nn.Module):
         point_feats = torch.where(pvalid, x, 0.0)
         for i in range(self.num_layers):
             h = dense(getattr(self, f"vfe_{i}"), point_feats, self.dtype)
-            h = torch.relu(layer_norm(getattr(self, f"norm_{i}"), h))
+            h = torch.relu(layer_norm_one_pass(getattr(self, f"norm_{i}"),
+                                               h))
             point_feats = torch.where(pvalid, h, 0.0)
             vfeat = vx.scatter_to_voxels(point_feats, p2v, max_voxels,
                                          self.mode)

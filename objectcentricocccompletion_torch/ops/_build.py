@@ -3,9 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under ``build/``
 at the repository root (``.gitignore`` lists it) and loaded with ``ctypes``.
-The library's file name carries a hash of the source and the flags, so an
-edited source is rebuilt. Every source is compiled by its own ``nvcc``
-process, all started together.
+The library's file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt. Every source
+is compiled by its own ``nvcc`` process, all started together.
 """
 from __future__ import annotations
 
@@ -29,6 +29,11 @@ _SIGNATURES = {
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
             ctypes.c_int),
     },
+    "window_attention_bwd": {
+        "window_attention_bwd": (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+            ctypes.c_int),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -47,9 +52,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path, named by a hash of its source, every shared
+    header in ``csrc/`` and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -1,18 +1,26 @@
-"""Inference-latency benchmark of the port (counterpart of the JAX
-repository's ``tools/benchmark.py``; the ``sst`` family so far).
+"""Latency benchmark of the port (counterpart of the JAX repository's
+``tools/benchmark.py`` and ``benchmarks/bench_detectors.py``; the ``sst``
+family so far).
 
     python -m objectcentricocccompletion_torch.tools.benchmark sst \\
         --frames 20 --dtype bfloat16
+    python -m objectcentricocccompletion_torch.tools.benchmark sst \\
+        --train --frames 10 --dtype bfloat16
 
 Builds the full-width ``SSTDetector(SSTDetectorConfig())`` with weights
-drawn from a seeded ``torch.Generator`` (no checkpoint is needed), runs
-``predict`` on a seeded synthetic frame after warm-up, and prints one JSON
-line: the per-frame latency (host clock around work that ends in a device
-synchronise), the device, and the card's name and power limit.
+drawn from a seeded ``torch.Generator`` (no checkpoint is needed). By
+default it runs ``predict`` on a seeded synthetic frame after warm-up and
+prints one JSON line: the per-frame latency (host clock around work that
+ends in a device synchronise), the device, and the card's name and power
+limit. With ``--train`` it runs full training steps instead (forward, loss,
+backward, global-norm clip, AdamW) on the same frame with its 32 boxes
+padded to ``max_gt``, and prints the per-step latency and the peak of
+``torch.cuda.max_memory_allocated`` over the timed steps.
 
-``--profile N`` also traces N more frames with ``torch.profiler``, prints
-the operators that take the most device time, and adds the device's busy
-time per frame and busy share (kernel time over wall time) to the line.
+``--profile N`` also traces N more frames (or steps) with
+``torch.profiler``, prints the operators that take the most device time,
+and adds the device's busy time per frame (or step) and busy share (kernel
+time over wall time) to the line.
 """
 from __future__ import annotations
 
@@ -22,11 +30,15 @@ import json
 import statistics
 import time
 
+import numpy as np
 import torch
 
 from ..data.synthetic import synth_frame
 from ..evalx.detector_eval import make_predict_fn
 from ..models.sst_detector import SSTDetector, SSTDetectorConfig
+from ..training.detector_trainer import (FrameBatch, collate_frames,
+                                         make_detector_train_step)
+from ..training.optim import make_optimizer
 from ..utils.device import card_info, resolve_device
 
 
@@ -52,6 +64,22 @@ def frame_tensors(cfg: SSTDetectorConfig, device, num_real: int = 150000,
     return torch.from_numpy(points).to(dev), torch.from_numpy(mask).to(dev)
 
 
+def train_batch(cfg: SSTDetectorConfig, device, num_real: int = 150000,
+                seed: int = 0) -> FrameBatch:
+    """A one-frame batch of ``synth_frame`` with its boxes padded (or cut)
+    to ``cfg.max_gt``, the padding invalid, on ``device``."""
+    points, mask, boxes, labels, valid = synth_frame(
+        cfg.sst.max_points, cfg.sst.pc_range, num_real=num_real, seed=seed)
+    m = min(len(boxes), cfg.max_gt)
+    pad = {"gt_boxes": np.zeros((cfg.max_gt, 7), np.float32),
+           "gt_labels": np.zeros((cfg.max_gt,), np.int32),
+           "gt_valid": np.zeros((cfg.max_gt,), bool)}
+    pad["gt_boxes"][:m], pad["gt_labels"][:m] = boxes[:m], labels[:m]
+    pad["gt_valid"][:m] = valid[:m]
+    return collate_frames([dict(points=points, points_mask=mask,
+                                **pad)]).to(resolve_device(device))
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -74,21 +102,20 @@ def time_frames(predict, points, mask, frames: int, warmup: int = 2
     return times
 
 
-def profile_frames(predict, points, mask, frames: int,
-                   row_limit: int = 25) -> dict:
-    """Trace ``frames`` predict calls on the card; print the operators by
-    device time and return the device busy time per frame and busy share
+def profile_calls(fn, n: int, device: torch.device, unit: str = "frame",
+                  row_limit: int = 25) -> dict:
+    """Trace ``n`` calls of ``fn()`` on the card; print the operators by
+    device time and return the device busy time per call and busy share
     (summed kernel and copy time over the traced wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    dev = points.device
-    _sync(dev)
+    _sync(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(frames):
-            predict(points, mask)
-        _sync(dev)
+        for _ in range(n):
+            fn()
+        _sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     avgs = prof.key_averages()
     print(avgs.table(sort_by="self_device_time_total", row_limit=row_limit,
@@ -96,9 +123,9 @@ def profile_frames(predict, points, mask, frames: int,
     # kernels and copies only: an operator's row repeats its kernels' time
     busy_ms = sum(e.self_device_time_total for e in avgs
                   if e.device_type == DeviceType.CUDA) / 1e3
-    return {"device_busy_ms_per_frame": busy_ms / frames,
+    return {f"device_busy_ms_per_{unit}": busy_ms / n,
             "device_busy_share": busy_ms / wall_ms,
-            "profiled_wall_ms_per_frame": wall_ms / frames}
+            f"profiled_wall_ms_per_{unit}": wall_ms / n}
 
 
 def bench_sst(frames: int, dtype: str = "bfloat16", device="cuda",
@@ -119,25 +146,74 @@ def bench_sst(frames: int, dtype: str = "bfloat16", device="cuda",
                     else "cpu"),
            "card": card_info() if dev.type == "cuda" else None}
     if profile_n:
-        res.update(profile_frames(predict, points, mask, profile_n))
+        res.update(profile_calls(lambda: predict(points, mask), profile_n,
+                                 dev))
+    return res
+
+
+def bench_sst_train(steps: int, dtype: str = "bfloat16", device="cuda",
+                    seed: int = 0, num_real: int = 150000,
+                    profile_n: int = 0, warmup: int = 2) -> dict:
+    """Full-width SST training steps (forward, loss, backward, clip,
+    AdamW at the schedule of ``train_detector``'s defaults) on one frame;
+    the step time is the host clock around a step that ends in a device
+    synchronise, the median over ``steps`` after ``warmup``."""
+    dev = resolve_device(device)
+    cfg = sst_config(dtype)
+    model = build_sst(cfg, dev, seed).train()
+    batch = train_batch(cfg, dev, num_real, seed)
+    optimizer, schedule = make_optimizer(
+        model.named_parameters(), base_lr=1e-5,
+        total_steps=warmup + steps + profile_n)
+    step_fn = make_detector_train_step(model, optimizer, schedule)
+    count = iter(range(warmup + steps + profile_n))
+    for _ in range(warmup):
+        step_fn(next(count), batch)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    times, metrics = [], {}
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        metrics = step_fn(next(count), batch)
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    med = statistics.median(times)
+    res = {"family": "sst", "mode": "train", "dtype": dtype,
+           "steps": steps, "num_real_points": num_real, "step_ms": med,
+           "mean_ms": statistics.fmean(times),
+           "metrics": {k: float(v) for k, v in metrics.items()},
+           "peak_memory_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                               if dev.type == "cuda" else None),
+           "device": str(dev),
+           "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                    else "cpu"),
+           "card": card_info() if dev.type == "cuda" else None}
+    if profile_n:
+        res.update(profile_calls(lambda: step_fn(next(count), batch),
+                                 profile_n, dev, unit="step"))
     return res
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("family", choices=["sst"])
-    p.add_argument("--frames", type=int, default=20)
+    p.add_argument("--frames", type=int, default=20,
+                   help="timed frames (with --train: timed steps)")
+    p.add_argument("--train", action="store_true",
+                   help="time training steps instead of predict")
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--device", default="cuda")
     p.add_argument("--num-real", type=int, default=150000,
                    help="real points in the synthetic frame")
     p.add_argument("--profile", type=int, default=0, metavar="N",
-                   help="also trace N frames with torch.profiler")
+                   help="also trace N frames (or steps) with "
+                        "torch.profiler")
     args = p.parse_args(argv)
-    print(json.dumps(bench_sst(args.frames, args.dtype, args.device,
-                               num_real=args.num_real,
-                               profile_n=args.profile)))
+    bench = bench_sst_train if args.train else bench_sst
+    print(json.dumps(bench(args.frames, args.dtype, args.device,
+                           num_real=args.num_real, profile_n=args.profile)))
 
 
 if __name__ == "__main__":

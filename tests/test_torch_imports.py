@@ -17,7 +17,12 @@ def _sources():
 def test_port_sources_exist():
     names = {p.name for p in _sources()}
     assert {"chip_smoke.py", "window_attention.py", "sst.py",
-            "convert.py"} <= names
+            "convert.py", "anchor_head.py", "detector_trainer.py",
+            "optim.py", "trainer.py", "frame_dataset.py", "train.py",
+            "benchmark.py"} <= names
+    csrc = ROOT / "objectcentricocccompletion_torch" / "csrc"
+    assert {"window_attention.cu", "window_attention_bwd.cu"} <= \
+        {p.name for p in csrc.glob("*.cu")}
 
 
 def test_port_imports_no_jax():
