@@ -9,13 +9,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
 1. Build every CUDA kernel of the path from ``objectcentricocccompletion_torch/
    csrc`` with nvcc (into ``build/``); print the build log and time and the
    card's name and power limit.
-2. Hold the window-attention kernel against its plain PyTorch version on the
-   card at both production shapes (small level W=3200, T=32; large level
-   W=800, T=144; C=128, H=8), in float32 (atol 1e-5) and bfloat16 (atol
-   2e-2, compared in float32), with random masks at realistic occupancy and
-   fully masked windows. Time the kernel, the plain version and
-   ``scaled_dot_product_attention`` (a yardstick only; the port never calls
-   it) with CUDA events, medians of 20 calls each.
+2. Hold the window-attention forward kernels against their plain PyTorch
+   version on the card at both production shapes (small level W=3200, T=32;
+   large level W=800, T=144; C=128, H=8) and at the shapes of
+   ``CHECK_SHAPES`` (head dims 8 and 32, ragged T=20 and T=100), in float32
+   (the CUDA-core kernel, atol 1e-5) and bfloat16 (the tensor-core kernel,
+   atol 2e-2, compared in float32), with random masks and one window in
+   eight fully masked (exactly the mean of v). Time the kernel, the plain
+   version and ``scaled_dot_product_attention`` (a yardstick only; the port
+   never calls it) with CUDA events, medians of 20 calls each, beside the
+   bound (``attention_bound_ms``) and the exponentials' floor.
 3. Run full-width ``SSTDetector(SSTDetectorConfig())`` inference in bfloat16
    through the benchmark entry point's functions on two seeded synthetic
    frames (dense: 150000 points; sparse: 20000). The launch counts are set
@@ -27,12 +30,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the CPU (the path the CPU tests hold to the JAX package).
 4. Hold the window-attention backward kernel against its plain PyTorch
    version (``window_attention_bwd_plain``) on the card at both production
-   shapes and the other head dims, in float32 (max abs err <= 1e-4) and
+   shapes and at ``CHECK_SHAPES``, in float32 (max abs err <= 1e-4) and
    bfloat16 (max abs err <= 2^-7 * max|ref| per output, compared in
    float32), on the forward phase's inputs (one window in eight fully
    masked) with g ~ N(0, 1): in fully masked windows dq = dk = 0 and dv is
    the mean of g. Time the kernel, the plain version and SDPA's backward
    (forward+backward through autograd minus forward; a yardstick only).
+   Then both kernels, both dtypes, at the dense frame's occupancy (99% of
+   the T=32 windows and 65% of the T=144 windows fully masked): checked
+   against the plain versions and timed beside their bounds.
 5. Train full-width SST in bfloat16 through the port's training CLI
    (``tools/train.py sst``'s ``main``) for 6 steps on 3 file-backed
    synthetic frames at production scale (``write_synthetic_frames``:
@@ -46,8 +52,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    limit), with the kernels and with ``use_pallas_attention=False`` (the
    einsum differentiated by autograd), same weights: every parameter's
    gradient must agree within 1e-3 * its max |grad| + 1e-5 * the largest
-   |grad| of the model.
-7. Print the kernels' JSON line, then as the last line
+   |grad| of the model. Phases 3 and 6 count the float32 kernels' launches
+   (12 forward per level in the frame; 4 forward and 4 backward per level
+   in the gradient check).
+7. Print the kernels' JSON line (the bf16 tensor-core kernels and the
+   float32 CUDA-core kernels, each level apart), then as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where ``torch.cuda.is_available()``
@@ -76,13 +85,22 @@ from objectcentricocccompletion_torch.tools import train as train_cli
 from objectcentricocccompletion_torch.utils.device import card_info
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s; bf16 tensor-core
-# and float32 (non-tensor) FLOP/s
+# and float32 (non-tensor) FLOP/s; exp2 (16 per clock on each of 132 SMs at
+# the 1.98 GHz boost clock)
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_EX2 = 16 * 132 * 1.98e9
+# exponentials per (query, key, head) of the bf16 kernels: forward, backward
+EX2_PER_PAIR = (1, 2)
 ATTN_SHAPES = ((3200, 32), (800, 144))   # (W, T) of the two levels
 C, H = 128, 8
-# the kernel's other head dims (8: the tiny config; 32), checked only
-OTHER_HEAD_DIMS = ((64, 16, 32, 4), (64, 144, 128, 4))   # (W, T, C, H)
+# checked only (W, T, C, H): the tiny config (T=16, hd=8), hd=32, a ragged
+# capacity (T=20, not a multiple of 16) and T=100
+CHECK_SHAPES = ((64, 16, 32, 4), (64, 144, 128, 4), (64, 20, 128, 8),
+                (64, 100, 128, 8))
+# share of fully masked windows in the dense frame at each level (PERF.md
+# section 4: 33 of 3,200 and 279 of 800 windows occupied)
+MODEL_MASKED = ((3200, 32, 0.99), (800, 144, 0.65))
 ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # float32 sums in another order through 12 attention layers and the neck,
 # on maps of magnitude ~10
@@ -126,36 +144,58 @@ def median_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def attention_inputs(W, T, C, dtype, gen):
+def attention_inputs(W, T, C, dtype, gen, masked=None):
     """q/k/v ~ N(0, 1); per window a random token count in [1, T] at
-    random positions; one window in eight fully masked (unused slots)."""
+    random positions; fully masked (unused slots): one window in eight, or
+    a random ``masked`` share of the windows."""
     dev = torch.device("cuda")
     q, k, v = (torch.randn(W, T, C, generator=gen, device=dev).to(dtype)
                for _ in range(3))
     count = torch.randint(1, T + 1, (W, 1), generator=gen, device=dev)
     rank = torch.rand(W, T, generator=gen, device=dev).argsort(-1)
     mask = rank < count
-    mask[torch.arange(W, device=dev) % 8 == 7] = False
+    if masked is None:
+        mask[torch.arange(W, device=dev) % 8 == 7] = False
+    else:
+        empty = torch.randperm(W, generator=gen, device=dev)
+        mask[empty[:round(masked * W)]] = False
     return q, k, v, mask.contiguous()
 
 
-def attention_bound_ms(W, T, dtype, tensors=4, products=2):
-    """The least time for ``tensors`` [W, T, C] tensors moved once (read or
-    written) plus the mask, and ``products`` products of 2*T^2*hd per
-    window and head. Forward: q, k, v, out; q.k and p.v. Backward: q, k, v,
-    g, dq, dk, dv; five products."""
-    elt = torch.finfo(dtype).bits // 8
-    nbytes = tensors * W * T * C * elt + W * T
-    flops = 2 * products * W * T * T * C
-    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+def attention_bound_ms(mask, C, dtype, backward=False):
+    """The least time for the bytes the function must move and its
+    products, on this mask. Every window reads the mask; the forward reads
+    v and writes out, the backward reads g and writes dq, dk and dv; only a
+    window with a valid key needs q and k (forward) or q, k and v
+    (backward) and has products: 2 (forward) or 5 (backward) of 2*T^2*hd
+    per head. A fully masked window's result has a closed form (the mean of
+    v, or of g for dv; dq = dk = 0)."""
+    W, T = mask.shape
+    live = int(mask.any(1).sum())
+    row_bytes = T * C * torch.finfo(dtype).bits // 8
+    if backward:
+        nbytes, flops = (4 * W + 3 * live) * row_bytes, 10 * live * T * T * C
+    else:
+        nbytes, flops = (2 * W + 2 * live) * row_bytes, 4 * live * T * T * C
+    t_bytes = (nbytes + W * T) / PEAK_BYTES
+    t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
 
-def check_against_plain(W, T, C, H, dtype, gen):
+def ex2_floor_ms(mask, H, backward=False):
+    """The bf16 kernels' exponentials (one per query, key and head of every
+    window with a valid key in the forward, two in the backward) at the
+    card's exp2 rate: a floor beside the bound."""
+    W, T = mask.shape
+    live = int(mask.any(1).sum())
+    return live * H * T * T * EX2_PER_PAIR[backward] / PEAK_EX2 * 1e3
+
+
+def check_against_plain(W, T, C, H, dtype, gen, masked=None):
     """Kernel vs plain on one random input; returns the inputs and errors
     (all keys, and fully masked windows against the mean of v)."""
-    q, k, v, mask = attention_inputs(W, T, C, dtype, gen)
+    q, k, v, mask = attention_inputs(W, T, C, dtype, gen, masked)
     out = wa.window_attention(q, k, v, mask, H)
     torch.cuda.synchronize()
     ref = wa.window_attention_plain(q, k, v, mask, H)
@@ -172,7 +212,7 @@ def check_against_plain(W, T, C, H, dtype, gen):
 
 def phase_kernel_vs_plain():
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for W, T, c, h in OTHER_HEAD_DIMS:
+    for W, T, c, h in CHECK_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             _, err, err_full = check_against_plain(W, T, c, h, dtype, gen)
             log(f"attention W={W} T={T} C={c} H={h} {str(dtype)[6:]}: "
@@ -192,22 +232,23 @@ def phase_kernel_vs_plain():
             library_ms = median_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     q4, k4, v4, attn_mask=m4))
-            bound_ms, bound_by = attention_bound_ms(W, T, dtype)
+            bound_ms, bound_by = attention_bound_ms(mask, C, dtype)
             rows[(T, dtype)] = dict(max_abs_err=err, ms=ms,
                                     plain_ms=plain_ms, bound_ms=bound_ms,
                                     bound_by=bound_by, library_ms=library_ms)
             log(f"attention W={W} T={T} {str(dtype)[6:]}: max_abs_err "
                 f"{err:.3e} (fully masked {err_full:.3e}) kernel {ms:.4f} ms"
                 f" plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound "
-                f"{bound_ms:.4f} ms ({bound_by}); occupied tokens "
+                f"{bound_ms:.4f} ms ({bound_by}) ex2 floor (bf16 kernel) "
+                f"{ex2_floor_ms(mask, H):.4f} ms; occupied tokens "
                 f"{mask.float().mean().item():.3f}")
     return rows
 
 
-def check_bwd_against_plain(W, T, C, H, dtype, gen):
+def check_bwd_against_plain(W, T, C, H, dtype, gen, masked=None):
     """Backward kernel vs plain on one random input; returns the inputs
     and the largest error over dq, dk, dv (each against its tolerance)."""
-    q, k, v, mask = attention_inputs(W, T, C, dtype, gen)
+    q, k, v, mask = attention_inputs(W, T, C, dtype, gen, masked)
     g = torch.randn(W, T, C, generator=gen, device="cuda").to(dtype)
     got = wa._bwd_kernel(q, k, v, mask, g, H)
     torch.cuda.synchronize()
@@ -256,7 +297,7 @@ def sdpa_bwd_ms(q, k, v, mask, g, H):
 
 def phase_bwd_kernel_vs_plain():
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for W, T, c, h in OTHER_HEAD_DIMS:
+    for W, T, c, h in CHECK_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             _, err = check_bwd_against_plain(W, T, c, h, dtype, gen)
             log(f"attention bwd W={W} T={T} C={c} H={h} {str(dtype)[6:]}: "
@@ -270,16 +311,40 @@ def phase_bwd_kernel_vs_plain():
             plain_ms = median_ms(
                 lambda: wa.window_attention_bwd_plain(q, k, v, mask, g, H))
             library_ms = sdpa_bwd_ms(q, k, v, mask, g, H)
-            bound_ms, bound_by = attention_bound_ms(W, T, dtype, tensors=7,
-                                                    products=5)
+            bound_ms, bound_by = attention_bound_ms(mask, C, dtype,
+                                                    backward=True)
             rows[(T, dtype)] = dict(max_abs_err=err, ms=ms,
                                     plain_ms=plain_ms, bound_ms=bound_ms,
                                     bound_by=bound_by, library_ms=library_ms)
             log(f"attention bwd W={W} T={T} {str(dtype)[6:]}: max_abs_err "
                 f"{err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
                 f"sdpa bwd {library_ms:.4f} ms bound {bound_ms:.4f} ms "
-                f"({bound_by})")
+                f"({bound_by}) ex2 floor (bf16 kernel) "
+                f"{ex2_floor_ms(mask, H, backward=True):.4f} ms")
     return rows
+
+
+def phase_model_occupancy():
+    """Both kernels at the dense frame's share of fully masked windows:
+    checked against the plain versions, and timed beside their bounds."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for W, T, share in MODEL_MASKED:
+        for dtype in (torch.float32, torch.bfloat16):
+            (q, k, v, mask), _, _ = check_against_plain(W, T, C, H, dtype,
+                                                        gen, share)
+            fwd_ms = median_ms(lambda: wa._fwd_kernel(q, k, v, mask, H))
+            fb, fby = attention_bound_ms(mask, C, dtype)
+            fex = ex2_floor_ms(mask, H)
+            (q, k, v, mask, g), _ = check_bwd_against_plain(W, T, C, H, dtype,
+                                                            gen, share)
+            bwd_ms = median_ms(lambda: wa._bwd_kernel(q, k, v, mask, g, H))
+            bb, bby = attention_bound_ms(mask, C, dtype, backward=True)
+            log(f"attention at the model's occupancy W={W} T={T} "
+                f"{str(dtype)[6:]}: {int((~mask.any(1)).sum())} windows "
+                f"fully masked; forward {fwd_ms:.4f} ms (bound {fb:.4f} ms "
+                f"{fby}, ex2 floor {fex:.4f} ms), backward {bwd_ms:.4f} ms "
+                f"(bound {bb:.4f} ms {bby}, ex2 floor "
+                f"{ex2_floor_ms(mask, H, backward=True):.4f} ms)")
 
 
 def occupancy(model, points, mask):
@@ -379,11 +444,20 @@ def phase_fp32_model_check(dev):
     cpu.load_state_dict(kern.state_dict())
     pts, msk = bench.frame_tensors(cfg, dev, 150000, seed=0)
     with torch.inference_mode():
-        a, b = kern(pts, msk), plain(pts, msk)
+        wa.LAUNCHES.clear()
+        a = kern(pts, msk)
+        torch.cuda.synchronize()
+        launches = dict(wa.LAUNCHES)
+        b = plain(pts, msk)
         c = cpu(pts.cpu(), msk.cpu())
+    per_level = len(kern.backbone.layers)
+    if launches != {32: per_level, 144: per_level}:
+        raise AssertionError(f"fp32 frame: forward launches {launches}, "
+                             f"expected {per_level} per level")
     compare_maps("fp32 model, kernel vs plain attention", a, b,
                  FP32_MODEL_ATOL)
     compare_maps("fp32 model, card vs CPU", a, c, FP32_CPU_ATOL)
+    return launches
 
 
 def phase_training(dev):
@@ -480,11 +554,19 @@ def phase_fp32_grad_check(dev):
     b = bench.train_batch(cfg, dev, 150000, seed=0)
     frame = [x[0] for x in b]
     grads, losses = [], []
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
     for model in (kern, plain):
         out = model.loss(*frame)
         out["loss"].backward()
         losses.append(out["loss"].item())
         grads.append({n: p.grad for n, p in model.named_parameters()})
+    fwd, bwd = dict(wa.LAUNCHES), dict(wa.BWD_LAUNCHES)
+    per_level = len(kern.backbone.layers)
+    if fwd != {32: per_level, 144: per_level} or bwd != fwd:
+        raise AssertionError(f"fp32 gradient check: launches forward {fwd} "
+                             f"backward {bwd}, expected {per_level} per "
+                             f"level each")
     scale = max(g.abs().max().item() for g in grads[1].values())
     worst = (0.0, "")
     for n, ref in grads[1].items():
@@ -497,7 +579,9 @@ def phase_fp32_grad_check(dev):
     log(f"fp32 gradients ({GRAD_CHECK_BLOCKS} blocks, full width): loss "
         f"{losses[0]:.6f} (kernels) vs {losses[1]:.6f} (einsum); "
         f"{len(grads[1])} parameters within tolerance, worst {worst[1]} at "
-        f"{worst[0]:.3f} of it; largest |grad| {scale:.3e}")
+        f"{worst[0]:.3f} of it; largest |grad| {scale:.3e}; launches "
+        f"forward {fwd} backward {bwd}")
+    return fwd, bwd
 
 
 def main():
@@ -523,35 +607,48 @@ def main():
     launches, _ = phase_inference(dev)
     log(f"phase inference: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    phase_fp32_model_check(dev)
+    fp32_fwd = phase_fp32_model_check(dev)
     log(f"phase fp32 check: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     bwd_rows = phase_bwd_kernel_vs_plain()
     log(f"phase backward kernel-vs-plain: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
+    phase_model_occupancy()
+    log(f"phase model occupancy: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     train_fwd, train_bwd = phase_training(dev)
     log(f"phase training: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    phase_fp32_grad_check(dev)
+    grad_fwd, grad_bwd = phase_fp32_grad_check(dev)
     log(f"phase fp32 gradient check: {time.perf_counter() - t:.1f} s")
 
+    # launches on the model's paths: bf16 inference and training run the
+    # tensor-core kernels, the float32 frame and gradient check the
+    # CUDA-core kernels
     src = "objectcentricocccompletion_torch/csrc/"
+    fwd_tpu = "objectcentricocccompletion_tpu/ops/pallas_attention.py:25"
+    bwd_tpu = ("benchmarks/repro_attn_bwd.py:124 (_attn_bwd_kernel) and :40 "
+               "(_attn_bwd_kernel_fullstore)")
     kernels = []
-    for W, T in ATTN_SHAPES:
-        kernels.append(dict(
-            name=f"window_attention_T{T}", route="cuda",
-            source=src + "window_attention.cu",
-            replaces="objectcentricocccompletion_tpu/ops/pallas_attention.py"
-                     ":25",
-            launches=launches[T] + train_fwd[T],
-            **rows[(T, torch.bfloat16)]))
-    for W, T in ATTN_SHAPES:
-        kernels.append(dict(
-            name=f"window_attention_bwd_T{T}", route="cuda",
-            source=src + "window_attention_bwd.cu",
-            replaces="benchmarks/repro_attn_bwd.py:124 (_attn_bwd_kernel) "
-                     "and :40 (_attn_bwd_kernel_fullstore)",
-            launches=train_bwd[T], **bwd_rows[(T, torch.bfloat16)]))
+    for dtype, tag, fwd_src, bwd_src, fwd_n, bwd_n in (
+            (torch.bfloat16, "tc", "window_attention_tc.cu",
+             "window_attention_bwd_tc.cu",
+             {T: launches[T] + train_fwd[T] for _, T in ATTN_SHAPES},
+             train_bwd),
+            (torch.float32, "fp32", "window_attention.cu",
+             "window_attention_bwd.cu",
+             {T: fp32_fwd[T] + grad_fwd[T] for _, T in ATTN_SHAPES},
+             grad_bwd)):
+        for W, T in ATTN_SHAPES:
+            kernels.append(dict(
+                name=f"window_attention_{tag}_T{T}", route="cuda",
+                source=src + fwd_src, replaces=fwd_tpu, launches=fwd_n[T],
+                **rows[(T, dtype)]))
+        for W, T in ATTN_SHAPES:
+            kernels.append(dict(
+                name=f"window_attention_bwd_{tag}_T{T}", route="cuda",
+                source=src + bwd_src, replaces=bwd_tpu, launches=bwd_n[T],
+                **bwd_rows[(T, dtype)]))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,34 +1,34 @@
-// Masked multi-head window attention, forward, for Hopper (sm_90a).
+// Masked multi-head window attention, forward, float32, on the CUDA cores
+// of Hopper (sm_90a).
 //
 // Replaces the TPU kernel objectcentricocccompletion_tpu/ops/pallas_attention.py
-// `_attn_kernel`, launched by `pallas_window_attention`. It computes, for each
-// window w and head h (hd = C / H):
+// `_attn_kernel`, launched by `pallas_window_attention`, for float32 inputs
+// (bfloat16 inputs go to the tensor-core kernel, window_attention_tc.cu). It
+// computes, for each window w and head h (hd = C / H):
 //
 //   out[w, t, h] = softmax_s(where(mask[w, s], q[w, t, h] . k[w, s, h] / sqrt(hd), -1e9)) . v[w, s, h]
 //
-// in float32, with the denominator clamped at 1e-20 and the result stored in
-// the input dtype. A masked logit is *replaced* by -1e9 (never -inf), as the
-// plain reference `jnp_window_attention` does, so a window whose keys are all
-// masked (every padded window slot) gives the exact mean of its v rows.
+// in float32, with the denominator clamped at 1e-20. A masked logit is
+// *replaced* by -1e9 (never -inf), as the plain reference
+// `jnp_window_attention` does, so a window whose keys are all masked (every
+// padded window slot) gives the exact mean of its v rows. Full float32
+// products: TF32 tensor cores would not hold the float32 tolerance.
 //
 // What bounds it on the H100. The function reads q, k, v once and writes out
-// once: 4 * W * T * C elements. At the SST production shapes in bf16 that is
-// 4 * 3200 * 32 * 128 * 2 B = 104.9 MB at the small level (T = 32) and
-// 4 * 800 * 144 * 128 * 2 B = 118.0 MB at the large level (T = 144): 31.3 and
-// 35.2 us at 3.35 TB/s. Its products are 4 * W * T^2 * C operations, 1.68 and
-// 8.49 GFLOP, 1.7 and 8.6 us at the bf16 tensor-core peak of 989 TFLOP/s. So it
-// is bound by memory.
+// once: 4 * W * T * C float32 elements, 209.7 MB at the SST small level
+// (W = 3200, T = 32, C = 128) and 235.9 MB at the large level (W = 800,
+// T = 144): 62.6 and 70.4 us at 3.35 TB/s. Its products are 4 * W * T^2 * C
+// operations, 1.68 and 8.49 GFLOP, 25 and 127 us at the 67 TFLOP/s of
+// float32 outside the tensor cores. So the small level is bound by memory,
+// the large one by operations.
 //
 // What the design does about that. Each element of q, k and v is read from
 // device memory exactly once and the [W, H, T, T] logits never leave the SM:
 // one thread block per (window, head) stages that head's K and V slices
-// [T, hd] in shared memory as float32 (at most 2 * 144 * 16 * 4 B = 18 KB), and
-// one thread per query row runs an online softmax (running max, running sum)
-// over the T keys in registers. A head slice of one row is hd * 2 = 32 B in
-// bf16, one whole sector, so the per-head blocks waste no memory traffic; the
-// blocks of one window are neighbours in the grid. The arithmetic runs on the
-// CUDA cores, not the tensor cores: a later version can move the two products
-// to wgmma and the loads to TMA.
+// [T, hd] in shared memory (at most 2 * 144 * 16 * 4 B = 18 KB), and one
+// thread per query row runs an online softmax (running max, running sum)
+// over the T keys in registers. The blocks of one window are neighbours in
+// the grid.
 #include "window_rows.cuh"
 
 namespace {
@@ -45,13 +45,13 @@ constexpr int kMaxThreads = 512;
 // Grid: one block per (window, head), heads fastest. Block: T threads rounded
 // up to a warp; thread t < T owns query row t. Dynamic shared memory:
 // K [T, HD], V [T, HD] as float32, then the key mask [T] as float32.
-template <typename scalar_t, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kMaxThreads)
-    window_attention_fwd_kernel(const scalar_t* __restrict__ q,
-                                const scalar_t* __restrict__ k,
-                                const scalar_t* __restrict__ v,
+    window_attention_fwd_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
                                 const uint8_t* __restrict__ mask,
-                                scalar_t* __restrict__ out, int T, int C,
+                                float* __restrict__ out, int T, int C,
                                 int H, float qk_scale_log2) {
   extern __shared__ __align__(16) float smem[];
   float* ks = smem;
@@ -110,33 +110,32 @@ __global__ void __launch_bounds__(kMaxThreads)
   store_row<HD>(out + qoff, acc);
 }
 
-template <typename scalar_t, int HD>
+template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* mask, void* out, int W, int T, int C, int H,
                    cudaStream_t stream) {
   const int threads = ((T + 31) / 32) * 32;
   const size_t smem = static_cast<size_t>(2 * T * HD + T) * sizeof(float);
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
-  window_attention_fwd_kernel<scalar_t, HD>
+  window_attention_fwd_kernel<HD>
       <<<W * H, threads, smem, stream>>>(
-          static_cast<const scalar_t*>(q), static_cast<const scalar_t*>(k),
-          static_cast<const scalar_t*>(v),
-          static_cast<const uint8_t*>(mask), static_cast<scalar_t*>(out), T,
+          static_cast<const float*>(q), static_cast<const float*>(k),
+          static_cast<const float*>(v),
+          static_cast<const uint8_t*>(mask), static_cast<float*>(out), T,
           C, H, scale * kLog2e);
   return cudaGetLastError();
 }
 
-template <typename scalar_t>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v,
                         const void* mask, void* out, int W, int T, int C,
                         int H, cudaStream_t stream) {
   switch (C / H) {
     case 8:
-      return launch<scalar_t, 8>(q, k, v, mask, out, W, T, C, H, stream);
+      return launch<8>(q, k, v, mask, out, W, T, C, H, stream);
     case 16:
-      return launch<scalar_t, 16>(q, k, v, mask, out, W, T, C, H, stream);
+      return launch<16>(q, k, v, mask, out, W, T, C, H, stream);
     case 32:
-      return launch<scalar_t, 32>(q, k, v, mask, out, W, T, C, H, stream);
+      return launch<32>(q, k, v, mask, out, W, T, C, H, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -144,20 +143,17 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, k, v, out: [W, T, C] contiguous, 16-byte aligned, float32 (is_bf16 = 0)
-// or bfloat16 (is_bf16 = 1); mask: [W, T] bool (one byte each). C % H == 0,
+// q, k, v, out: [W, T, C] float32, contiguous, 16-byte aligned; mask: [W, T]
+// bool (one byte each). C % H == 0,
 // C / H in {8, 16, 32}, 1 <= T <= 512, (2 * C / H + 1) * T * 4 <= 48 KiB.
 // Launches on `stream` and returns cudaGetLastError() as an int.
 extern "C" int window_attention_fwd(const void* q, const void* k,
                                     const void* v, const void* mask,
                                     void* out, int W, int T, int C, int H,
-                                    int is_bf16, void* stream) {
+                                    void* stream) {
   if (W <= 0 || T <= 0 || T > kMaxThreads || H <= 0 || C % H != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? dispatch_hd<__nv_bfloat16>(q, k, v, mask, out, W, T, C, H, s)
-              : dispatch_hd<float>(q, k, v, mask, out, W, T, C, H, s);
-  return static_cast<int>(err);
+  return static_cast<int>(dispatch_hd(q, k, v, mask, out, W, T, C, H, s));
 }

@@ -1,14 +1,17 @@
-// Masked multi-head window attention, backward, for Hopper (sm_90a).
+// Masked multi-head window attention, backward, float32, on the CUDA cores
+// of Hopper (sm_90a).
 //
 // Replaces the two TPU backward kernels of benchmarks/repro_attn_bwd.py:
 // `_attn_bwd_kernel` (launched by `pallas_window_attention_bwd`) and
 // `_attn_bwd_kernel_fullstore` (launched by
-// `pallas_window_attention_bwd_fullstore`). Given the forward
+// `pallas_window_attention_bwd_fullstore`), for float32 inputs (bfloat16
+// inputs go to the tensor-core kernel, window_attention_bwd_tc.cu). Given the
+// forward
 //
 //   out = softmax_s(where(mask[w, s], q . k / sqrt(hd), -1e9)) . v
 //
-// per window w and head h (hd = C / H), and g = d out, it returns in the input
-// dtype, with float32 arithmetic:
+// per window w and head h (hd = C / H), and g = d out, it returns, in
+// float32:
 //
 //   P   = softmax(where(mask, q k^T * scale, -1e9))     (recomputed)
 //   dP  = g v^T,  delta_t = sum_s P_ts dP_ts,  dS = P * (dP - delta)
@@ -25,14 +28,13 @@
 // (`xla_chunked_window_attention_bwd`) does.
 //
 // What bounds it on the H100. The function reads q, k, v and g once and
-// writes dq, dk and dv once: 7 * W * T * C elements plus the mask. In bf16 at
-// the SST production shapes that is 183.5 MB at the small level (W = 3200,
-// T = 32, C = 128) and 206.4 MB at the large level (W = 800, T = 144): 54.8
-// and 61.6 us at 3.35 TB/s. Its 10 * W * T^2 * C operations (five products of
-// 2 * T^2 * hd per window and head) are 4.2 and 21.2 GFLOP, 4.2 and 21.5 us at
-// the bf16 tensor-core peak of 989 TFLOP/s. So bf16 is bound by bytes at both
-// levels; float32 at T = 144 is bound by operations on the CUDA cores
-// (0.317 ms at 67 TFLOP/s).
+// writes dq, dk and dv once: 7 * W * T * C float32 elements plus the mask,
+// 367.1 MB at the SST small level (W = 3200, T = 32, C = 128) and 412.9 MB
+// at the large level (W = 800, T = 144): 109.6 and 123.3 us at 3.35 TB/s.
+// Its 10 * W * T^2 * C operations (five products of 2 * T^2 * hd per window
+// and head) are 4.2 and 21.2 GFLOP, 63 us and 0.317 ms at the 67 TFLOP/s of
+// float32 outside the tensor cores. So the small level is bound by bytes and
+// the large one by operations.
 //
 // What the design does about that. Every input element is read from device
 // memory once and every output element written once; nothing of size T^2
@@ -49,9 +51,8 @@
 //      statistics and accumulate dv_s and dk_s.
 //
 // The logits are recomputed in the same order of operations in both passes,
-// so pass 2 sees bit-identical P. The products run on the CUDA cores, not the
-// tensor cores, so the kernel issues far more instructions than its bound
-// needs: moving them to wgmma over tiles of several windows is later work.
+// so pass 2 sees bit-identical P. The products run in full float32 on the
+// CUDA cores: TF32 tensor cores would not hold the float32 tolerance.
 #include "window_rows.cuh"
 
 namespace {
@@ -70,16 +71,16 @@ constexpr size_t kDefaultSmem = 48 * 1024;
 // up to a warp. Dynamic shared memory, float32: q, k, v, g [T, HD] each, then
 // per query row the max (log2 domain), 1 / sum and delta, then the key mask,
 // [T] each: (4 * HD + 4) * T * 4 bytes.
-template <typename scalar_t, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kMaxThreads)
-    window_attention_bwd_kernel(const scalar_t* __restrict__ q,
-                                const scalar_t* __restrict__ k,
-                                const scalar_t* __restrict__ v,
+    window_attention_bwd_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
                                 const uint8_t* __restrict__ mask,
-                                const scalar_t* __restrict__ g,
-                                scalar_t* __restrict__ dq,
-                                scalar_t* __restrict__ dk,
-                                scalar_t* __restrict__ dv, int T, int C,
+                                const float* __restrict__ g,
+                                float* __restrict__ dq,
+                                float* __restrict__ dk,
+                                float* __restrict__ dv, int T, int C,
                                 int H, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
@@ -188,14 +189,14 @@ __global__ void __launch_bounds__(kMaxThreads)
   store_row<HD>(dv + off, dva);
 }
 
-template <typename scalar_t, int HD>
+template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* mask, const void* g, void* dq, void* dk,
                    void* dv, int W, int T, int C, int H,
                    cudaStream_t stream) {
   const int threads = ((T + 31) / 32) * 32;
   const size_t smem = static_cast<size_t>(4 * HD + 4) * T * sizeof(float);
-  auto kernel = window_attention_bwd_kernel<scalar_t, HD>;
+  auto kernel = window_attention_bwd_kernel<HD>;
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -204,27 +205,26 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
   const float scale = 1.0f / sqrtf(static_cast<float>(HD));
   kernel<<<W * H, threads, smem, stream>>>(
-      static_cast<const scalar_t*>(q), static_cast<const scalar_t*>(k),
-      static_cast<const scalar_t*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<const scalar_t*>(g), static_cast<scalar_t*>(dq),
-      static_cast<scalar_t*>(dk), static_cast<scalar_t*>(dv), T, C, H, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<const float*>(g), static_cast<float*>(dq),
+      static_cast<float*>(dk), static_cast<float*>(dv), T, C, H, scale);
   return cudaGetLastError();
 }
 
-template <typename scalar_t>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v,
                         const void* mask, const void* g, void* dq, void* dk,
                         void* dv, int W, int T, int C, int H,
                         cudaStream_t stream) {
   switch (C / H) {
     case 8:
-      return launch<scalar_t, 8>(q, k, v, mask, g, dq, dk, dv, W, T, C, H,
+      return launch<8>(q, k, v, mask, g, dq, dk, dv, W, T, C, H,
                                  stream);
     case 16:
-      return launch<scalar_t, 16>(q, k, v, mask, g, dq, dk, dv, W, T, C, H,
+      return launch<16>(q, k, v, mask, g, dq, dk, dv, W, T, C, H,
                                   stream);
     case 32:
-      return launch<scalar_t, 32>(q, k, v, mask, g, dq, dk, dv, W, T, C, H,
+      return launch<32>(q, k, v, mask, g, dq, dk, dv, W, T, C, H,
                                   stream);
     default:
       return cudaErrorInvalidValue;
@@ -233,24 +233,19 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, k, v, g, dq, dk, dv: [W, T, C] contiguous, 16-byte aligned, float32
-// (is_bf16 = 0) or bfloat16 (is_bf16 = 1); mask: [W, T] bool (one byte
-// each). C % H == 0, C / H in {8, 16, 32}, 1 <= T <= 256 (so the shared
+// q, k, v, g, dq, dk, dv: [W, T, C] float32, contiguous, 16-byte aligned;
+// mask: [W, T] bool (one byte each). C % H == 0, C / H in {8, 16, 32}, 1 <= T <= 256 (so the shared
 // memory, (4 * C / H + 4) * T * 4 bytes, stays within 135 KB). Launches on
 // `stream` and returns cudaGetLastError() as an int.
 extern "C" int window_attention_bwd(const void* q, const void* k,
                                     const void* v, const void* mask,
                                     const void* g, void* dq, void* dk,
                                     void* dv, int W, int T, int C, int H,
-                                    int is_bf16, void* stream) {
+                                    void* stream) {
   if (W <= 0 || T <= 0 || T > kMaxThreads || H <= 0 || C % H != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? dispatch_hd<__nv_bfloat16>(q, k, v, mask, g, dq, dk, dv, W,
-                                           T, C, H, s)
-              : dispatch_hd<float>(q, k, v, mask, g, dq, dk, dv, W, T, C, H,
-                                   s);
-  return static_cast<int>(err);
+  return static_cast<int>(
+      dispatch_hd(q, k, v, mask, g, dq, dk, dv, W, T, C, H, s));
 }

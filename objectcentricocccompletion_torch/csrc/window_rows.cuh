@@ -1,11 +1,11 @@
-// Row helpers shared by the window-attention kernels: one head's slice of a
-// token row, HD contiguous elements of float32 or bfloat16, moved between
-// device or shared memory and a float32 register array in 16-byte pieces.
+// Row helpers shared by the float32 window-attention kernels: one head's
+// slice of a token row, HD contiguous float32 elements, moved between device
+// or shared memory and a register array in 16-byte pieces; and the masked
+// logit that every window-attention kernel uses.
 // Callers guarantee 16-byte alignment (HD is a multiple of 8 and the tensors
 // are 16-byte aligned with rows of C = H * HD elements).
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -29,43 +29,12 @@ __device__ __forceinline__ void load_row(const float* __restrict__ src,
 }
 
 template <int HD>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* __restrict__ src,
-                                         float (&dst)[HD]) {
-#pragma unroll
-  for (int i = 0; i < HD; i += 8) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + i);
-    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(p[j]);
-      dst[i + 2 * j] = f.x;
-      dst[i + 2 * j + 1] = f.y;
-    }
-  }
-}
-
-template <int HD>
 __device__ __forceinline__ void store_row(float* __restrict__ dst,
                                           const float (&src)[HD]) {
 #pragma unroll
   for (int i = 0; i < HD; i += 4) {
     *reinterpret_cast<float4*>(dst + i) =
         make_float4(src[i], src[i + 1], src[i + 2], src[i + 3]);
-  }
-}
-
-template <int HD>
-__device__ __forceinline__ void store_row(__nv_bfloat16* __restrict__ dst,
-                                          const float (&src)[HD]) {
-#pragma unroll
-  for (int i = 0; i < HD; i += 8) {
-    uint4 raw;
-    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      p[j] = __floats2bfloat162_rn(src[i + 2 * j], src[i + 2 * j + 1]);
-    }
-    *reinterpret_cast<uint4*>(dst + i) = raw;
   }
 }
 

@@ -22,18 +22,18 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# name -> (argtypes, restype) of each library's C entry points
+# name -> (argtypes, restype) of each library's C entry points: the float32
+# CUDA-core kernels and the bf16 tensor-core kernels
+_FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _SIGNATURES = {
-    "window_attention": {
-        "window_attention_fwd": (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-            ctypes.c_int),
-    },
+    "window_attention": {"window_attention_fwd": (_FWD_ARGS, ctypes.c_int)},
     "window_attention_bwd": {
-        "window_attention_bwd": (
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-            ctypes.c_int),
-    },
+        "window_attention_bwd": (_BWD_ARGS, ctypes.c_int)},
+    "window_attention_tc": {
+        "window_attention_tc_fwd": (_FWD_ARGS, ctypes.c_int)},
+    "window_attention_bwd_tc": {
+        "window_attention_tc_bwd": (_BWD_ARGS, ctypes.c_int)},
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -4,14 +4,17 @@ counts.
 
 Counterpart of ``objectcentricocccompletion_tpu/ops/pallas_attention.py``:
 
-- the forward kernel (``csrc/window_attention.cu``) replaces the TPU kernel
-  ``_attn_kernel`` launched by ``pallas_window_attention``, and
+- the forward kernels replace the TPU kernel ``_attn_kernel`` launched by
+  ``pallas_window_attention``: ``csrc/window_attention_tc.cu`` (bfloat16,
+  tensor cores) and ``csrc/window_attention.cu`` (float32, CUDA cores);
   :func:`window_attention_plain` is the counterpart of
   ``jnp_window_attention``;
-- the backward kernel (``csrc/window_attention_bwd.cu``) replaces the TPU
-  kernels ``_attn_bwd_kernel`` and ``_attn_bwd_kernel_fullstore`` of
-  ``benchmarks/repro_attn_bwd.py``, and :func:`window_attention_bwd_plain`
-  is the counterpart of ``xla_chunked_window_attention_bwd``;
+- the backward kernels replace the TPU kernels ``_attn_bwd_kernel`` and
+  ``_attn_bwd_kernel_fullstore`` of ``benchmarks/repro_attn_bwd.py``:
+  ``csrc/window_attention_bwd_tc.cu`` (bfloat16, tensor cores) and
+  ``csrc/window_attention_bwd.cu`` (float32, CUDA cores);
+  :func:`window_attention_bwd_plain` is the counterpart of
+  ``xla_chunked_window_attention_bwd``;
 - :func:`window_attention` is differentiable on both devices, as
   ``pallas_window_attention``'s ``custom_vjp`` is.
 
@@ -30,8 +33,8 @@ from . import _build
 NEG = -1e9
 
 # Launches of the CUDA kernels, by window capacity T: the forward's and the
-# backward's. Each wrapper adds one where it launches its kernel and nowhere
-# else.
+# backward's (either dtype's kernel). Each wrapper adds one where it launches
+# its kernel and nowhere else.
 LAUNCHES: collections.Counter = collections.Counter()
 BWD_LAUNCHES: collections.Counter = collections.Counter()
 
@@ -177,14 +180,15 @@ def _fwd_kernel(q, k, v, mask, num_heads):
     check_inputs(q, k, v, mask, num_heads)
     W, T, C = q.shape
     out = torch.empty_like(q)
-    lib = _build.load("window_attention")
+    if q.dtype == torch.bfloat16:
+        fn = _build.load("window_attention_tc").window_attention_tc_fwd
+    else:
+        fn = _build.load("window_attention").window_attention_fwd
     with torch.cuda.device(q.device):
-        err = lib.window_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), W, T, C, num_heads,
-            int(q.dtype == torch.bfloat16), _stream(q.device))
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                 out.data_ptr(), W, T, C, num_heads, _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"window_attention_fwd failed: CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
     LAUNCHES[T] += 1
     return out
 
@@ -193,15 +197,16 @@ def _bwd_kernel(q, k, v, mask, g, num_heads):
     check_bwd_inputs(q, k, v, mask, g, num_heads)
     W, T, C = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    lib = _build.load("window_attention_bwd")
+    if q.dtype == torch.bfloat16:
+        fn = _build.load("window_attention_bwd_tc").window_attention_tc_bwd
+    else:
+        fn = _build.load("window_attention_bwd").window_attention_bwd
     with torch.cuda.device(q.device):
-        err = lib.window_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            W, T, C, num_heads, int(q.dtype == torch.bfloat16),
-            _stream(q.device))
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                 g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 W, T, C, num_heads, _stream(q.device))
     if err != 0:
-        raise RuntimeError(f"window_attention_bwd failed: CUDA error {err}")
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
     BWD_LAUNCHES[T] += 1
     return dq, dk, dv
 
@@ -247,22 +252,22 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q/k/v [W, T, C], mask [W, T] bool -> [W, T, C], differentiable in
     q, k and v.
 
-    On CUDA tensors the forward launches the hand-written Hopper kernel
-    (``csrc/window_attention.cu``, which replaces the TPU kernel
-    ``pallas_attention.py::_attn_kernel``) and the backward the
-    hand-written backward kernel (``csrc/window_attention_bwd.cu``, which
-    replaces ``repro_attn_bwd.py::_attn_bwd_kernel`` and
-    ``_attn_bwd_kernel_fullstore``); each raises if its kernel does not take
-    the inputs. On CPU tensors they run :func:`window_attention_plain` and
+    On CUDA tensors the forward and the backward each launch a hand-written
+    Hopper kernel, and raise if it does not take the inputs: bfloat16 goes
+    to the tensor-core kernels (``csrc/window_attention_tc.cu``,
+    ``csrc/window_attention_bwd_tc.cu``), float32 to the CUDA-core kernels
+    (``csrc/window_attention.cu``, ``csrc/window_attention_bwd.cu``). They
+    replace the TPU kernels ``pallas_attention.py::_attn_kernel`` and
+    ``repro_attn_bwd.py::_attn_bwd_kernel`` / ``_attn_bwd_kernel_fullstore``.
+    On CPU tensors they run :func:`window_attention_plain` and
     :func:`window_attention_bwd_plain`.
 
-    Bound on the H100, forward: memory. The kernel reads q, k and v once
-    and writes the output once, 4*W*T*C elements (104.9 MB at the bf16
-    small level W=3200, T=32, C=128; 118.0 MB at the large level W=800,
-    T=144), 31.3 and 35.2 us at 3.35 TB/s, against 1.7 and 8.6 us for its
-    4*W*T^2*C operations at the bf16 tensor-core peak. The design keeps
-    every logit in registers: one block per (window, head) stages that
-    head's K and V in shared memory and each thread runs an online softmax
-    for one query. The backward's bound and design are in its source.
+    Bound on the H100, bf16 forward: bytes and exponentials about equally.
+    It must read v and write the output for every window and read q and k
+    for windows with a valid key, at most 4*W*T*C elements (118.0 MB at the
+    large level W=800, T=144, C=128: 35.2 us at 3.35 TB/s), and take one
+    exponential per (query, key, head) (132.7 M there: 32 us at 16 ex2 per
+    clock and SM); its products take 8.6 us at the bf16 tensor-core peak.
+    Each source's note gives its bound and design.
     """
     return WindowAttention.apply(q, k, v, mask, num_heads)

@@ -121,10 +121,14 @@ def profile_calls(fn, n: int, device: torch.device, unit: str = "frame",
     print(avgs.table(sort_by="self_device_time_total", row_limit=row_limit,
                      max_name_column_width=60))
     # kernels and copies only: an operator's row repeats its kernels' time
-    busy_ms = sum(e.self_device_time_total for e in avgs
-                  if e.device_type == DeviceType.CUDA) / 1e3
+    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    # the hand-written attention kernels (csrc/window_attention*.cu)
+    attn_ms = sum(e.self_device_time_total for e in kernels
+                  if "window_attention" in e.key) / 1e3
     return {f"device_busy_ms_per_{unit}": busy_ms / n,
             "device_busy_share": busy_ms / wall_ms,
+            f"attention_kernel_ms_per_{unit}": attn_ms / n,
             f"profiled_wall_ms_per_{unit}": wall_ms / n}
 
 
