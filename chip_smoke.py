@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SST inference and training paths on one CUDA
-card.
+"""Drive the PyTorch port's SST inference and training paths and its
+OcOccNet serving path on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -55,7 +55,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    |grad| of the model. Phases 3 and 6 count the float32 kernels' launches
    (12 forward per level in the frame; 4 forward and 4 backward per level
    in the gradient check).
-7. Print the kernels' JSON line (the bf16 tensor-core kernels and the
+7. OcOccNet serving (predict, then the occupancy decode), full-width
+   ``OcOccNetConfig()`` with seeded random weights on
+   ``synthetic_batch(batch_size=4)``, through the ``ococcnet`` benchmark's
+   functions: in bfloat16 in the packed layout (the config default) and in
+   the dense layout (the ``roi_point_budget=640`` compaction); every output
+   finite and of the JAX package's shapes (boxes [4, 32, 7], scores
+   [4, 32], shape_latent [4, 32, 1536], occupancy logits [4, 32, 512]).
+   No hand-written kernel lies on this path: the launch counts are set to
+   0 before it and must read 0 after. Prints per layout the median ms per
+   batch and tracklets/s, the decode ms and the peak memory; then float32
+   (TF32 off) on the card against the port on the CPU (one tracklet, same
+   weights) at a stated tolerance, and the largest bf16-vs-float32
+   difference of the outputs, held to a stated tolerance too.
+8. Print the kernels' JSON line (the bf16 tensor-core kernels and the
    float32 CUDA-core kernels, each level apart), then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -74,8 +87,11 @@ import torch
 
 from objectcentricocccompletion_torch.data.frame_dataset import (
     write_synthetic_frames)
+from objectcentricocccompletion_torch.data.tracklet import TrackletBatch
 from objectcentricocccompletion_torch.evalx.detector_eval import (
     make_predict_fn)
+from objectcentricocccompletion_torch.models.ococcnet import (
+    OcOccNetWithLoss)
 from objectcentricocccompletion_torch.models.sst_detector import SSTDetector
 from objectcentricocccompletion_torch.ops import _build
 from objectcentricocccompletion_torch.ops import voxelize as vx
@@ -122,6 +138,21 @@ TRAIN_TIMED_FROM = 3            # steps 1-2 build the model and warm up
 GRAD_RTOL = 1e-3
 GRAD_FLOOR = 1e-5
 GRAD_CHECK_BLOCKS = 2
+# OcOccNet serving: timed batches per layout (of bench.OCC_BATCH tracklets)
+OCC_TIMED = 10
+# float32 on the card against the CPU, OcOccNet: sums in another order
+# (cuBLAS against oneDNN GEMMs, other erf / sin / exp) through 12 SIR
+# blocks, 3 attention layers, the fusion MLPs and the 3-layer decoder; every
+# layer ends in a LayerNorm, so the error stays near float32's 1e-7
+# relative times the depth and the widths' sums, on O(1) outputs
+FP32_OCC_CPU_ATOL = 1e-3
+OCC_KEYS = ("cls_logit", "bbox_pred", "shape_latent", "occ_logits")
+# bf16 against float32 on the card, the same weights and batch: bf16 keeps 8
+# significant bits (2^-8 relative per rounding) and rounds every Dense's
+# inputs and outputs through 12 SIR blocks, 3 attention layers and the
+# decoder, on O(1) outputs; the CPU tests' bar against JAX bf16 (0.1), over
+# twice the 0.0438 a full-width run of this check reads (PERF.md)
+BF16_OCC_ATOL = 0.1
 
 
 def log(msg):
@@ -584,6 +615,114 @@ def phase_fp32_grad_check(dev):
     return fwd, bwd
 
 
+def serve(model, batch, queries):
+    """OcOccNet predict, then the occupancy decode of ``queries``."""
+    with torch.inference_mode():
+        out = model.predict(batch)
+        out["occ_logits"] = model.decode_occ_queries(out["shape_latent"],
+                                                      queries)
+    return out
+
+
+def check_ococc(what, out, cfg, B):
+    """The JAX package's shapes, and every output finite."""
+    L, D, K = cfg.reg_len, cfg.d_model, cfg.num_occ_samples
+    expect = {"boxes": (B, L, 7), "scores": (B, L), "cls_logit": (B, L),
+              "bbox_pred": (B, L, 7), "shape_latent": (B, L, D),
+              "ae_latent": (B, L, D), "nonempty": (B, L),
+              "occ_logits": (B, L, K)}
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    if shapes != expect:
+        raise AssertionError(f"{what}: shapes {shapes}, expected {expect}")
+    bad = [k for k, v in out.items()
+           if v.is_floating_point() and not torch.isfinite(v).all()]
+    if bad:
+        raise AssertionError(f"{what}: not finite: {bad}")
+
+
+def phase_ococcnet(dev):
+    """Full-width OcOccNet serving in bf16 (packed and dense layouts),
+    float32 on the card against the CPU, and bf16 against float32."""
+    card = card_info()
+    bf16 = {}
+    for layout in bench.LAYOUTS:
+        cfg = bench.ococcnet_config("bfloat16", layout)
+        if layout == "packed":
+            model = bench.build_ococcnet(cfg, dev, seed=0)
+            weights = model.state_dict()
+        else:                       # the same weights, another layout
+            model = OcOccNetWithLoss(cfg, device=dev).eval()
+            model.load_state_dict(weights)
+        b, q = bench.tracklet_batch(cfg, dev, bench.OCC_BATCH, seed=0)
+        serve(model, b, q)                              # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        wa.LAUNCHES.clear()
+        wa.BWD_LAUNCHES.clear()
+        out = serve(model, b, q)
+        torch.cuda.synchronize()
+        launched = dict(wa.LAUNCHES), dict(wa.BWD_LAUNCHES)
+        if any(launched):
+            raise AssertionError(f"ococcnet {layout}: hand-written kernels "
+                                 f"launched {launched}; the path has none")
+        check_ococc(f"ococcnet bf16 {layout}", out, cfg, bench.OCC_BATCH)
+        bf16[layout] = out
+        with torch.inference_mode():
+            times = bench.time_calls(lambda: model.predict(b), OCC_TIMED,
+                                     dev, warmup=0)
+            dec = bench.time_calls(lambda: model.decode_occ_queries(
+                out["shape_latent"], q), OCC_TIMED, dev, warmup=0)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        ms = statistics.median(times)
+        kept = int(out["nonempty"].sum())
+        log(f"ococcnet bf16 {layout}: predict {ms:.3f} ms/batch of "
+            f"{bench.OCC_BATCH} tracklets x {cfg.reg_len} frames (median "
+            f"of {OCC_TIMED}: {[round(t, 3) for t in times]})")
+        log(f"ococcnet bf16 {layout}: {bench.OCC_BATCH * 1e3 / ms:.2f} "
+            f"tracklets/s")
+        log(f"ococcnet bf16 {layout}: occupancy decode "
+            f"{statistics.median(dec):.3f} ms/batch ({q.shape[2]} queries "
+            f"per frame)")
+        log(f"ococcnet bf16 {layout}: peak memory {peak:.3f} GiB; "
+            f"{kept} of {out['nonempty'].numel()} frames hold points; "
+            f"hand-written kernel launches 0; card {card}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worst_bf16 = {}
+    for layout in bench.LAYOUTS:
+        cfg = bench.ococcnet_config("float32", layout)
+        m32 = OcOccNetWithLoss(cfg, device=dev).eval()
+        m32.load_state_dict(weights)
+        b, q = bench.tracklet_batch(cfg, dev, bench.OCC_BATCH, seed=0)
+        out = serve(m32, b, q)
+        check_ococc(f"ococcnet fp32 {layout}", out, cfg, bench.OCC_BATCH)
+        cpu = OcOccNetWithLoss(cfg, device="cpu").eval()
+        cpu.load_state_dict(weights)
+        one = TrackletBatch(*(x[:1].cpu() for x in b))
+        ref = serve(cpu, one, q[:1].cpu())
+        for k in OCC_KEYS:
+            err = (out[k][:1].cpu() - ref[k]).abs().max().item()
+            log(f"ococcnet fp32 {layout}, card vs CPU (1 tracklet): {k} max "
+                f"abs err {err:.3e} (tolerance {FP32_OCC_CPU_ATOL}; "
+                f"magnitude {ref[k].abs().max().item():.3f})")
+            if not err <= FP32_OCC_CPU_ATOL:
+                raise AssertionError(f"ococcnet fp32 {layout} card vs CPU "
+                                     f"{k}: {err} > {FP32_OCC_CPU_ATOL}")
+            worst_bf16[(layout, k)] = (
+                bf16[layout][k].float() - out[k]).abs().max().item()
+    for (layout, k), err in worst_bf16.items():
+        log(f"ococcnet {layout}: bf16 vs fp32 {k} max abs diff {err:.4f} "
+            f"(tolerance {BF16_OCC_ATOL})")
+    log(f"ococcnet: largest bf16 vs fp32 output difference "
+        f"{max(worst_bf16.values()):.4f}")
+    bad = {lk: err for lk, err in worst_bf16.items()
+           if not err <= BF16_OCC_ATOL}
+    if bad:
+        raise AssertionError(f"ococcnet bf16 vs fp32 beyond {BF16_OCC_ATOL}: "
+                             f"{bad}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -621,6 +760,9 @@ def main():
     t = time.perf_counter()
     grad_fwd, grad_bwd = phase_fp32_grad_check(dev)
     log(f"phase fp32 gradient check: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_ococcnet(dev)
+    log(f"phase ococcnet: {time.perf_counter() - t:.1f} s")
 
     # launches on the model's paths: bf16 inference and training run the
     # tensor-core kernels, the float32 frame and gradient check the

@@ -1,5 +1,5 @@
 """Weight converter: a flax params tree of the JAX package's ``SSTDetector``
-to the port's ``state_dict``, and back.
+or ``OcOccNetWithLoss`` to the port's ``state_dict``, and back.
 
 The input is a nested dict of numpy arrays (``jax.device_get`` of the
 params, or any tree read from disk); this module needs no JAX. Conversions:
@@ -7,7 +7,8 @@ Dense kernel ``[in, out]`` -> Linear weight ``[out, in]``; Conv kernel HWIO
 -> OIHW; LayerNorm / GroupNorm ``scale`` -> ``weight``; ``bias`` stays.
 Module names: ``backbone/block{i}_shift{s}`` -> ``backbone.layers.{2i+s}``,
 ``dil{i}`` -> ``neck_convs.{i}``, ``GroupNorm_{i}`` -> ``neck_norms.{i}``;
-every other name is the flax path joined with dots.
+every other name (every OcOccNet name among them) is the flax path joined
+with dots.
 """
 from __future__ import annotations
 

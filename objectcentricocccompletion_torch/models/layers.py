@@ -1,7 +1,11 @@
 """Shared building blocks (counterpart of the JAX package's
-``models/layers.py``, only the parts the SST path uses)."""
+``models/layers.py``, the parts the SST and OcOccNet forward paths use)."""
 from __future__ import annotations
 
+import math
+from typing import Sequence
+
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -84,3 +88,102 @@ def init_flax_like_(module: nn.Module, generator: torch.Generator) -> None:
             with torch.no_grad():
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+
+
+def one_pass_ln(layer: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``OnePassLayerNorm``: float32 statistics in one
+    pass, the result cast back to the input's dtype."""
+    return layer_norm_one_pass(layer, x).to(x.dtype)
+
+
+def gelu_auto(x: torch.Tensor) -> torch.Tensor:
+    """The dtype-adaptive GELU: the exact erf form in float32, the tanh
+    form in bfloat16 (``models/layers.py::_gelu_auto`` of the JAX
+    package)."""
+    if x.dtype in (torch.float32, torch.float64):
+        return F.gelu(x)
+    return F.gelu(x, approximate="tanh")
+
+
+def activation(name: str):
+    return {"gelu": gelu_auto, "relu": torch.relu,
+            "leakyrelu": F.leaky_relu}[name]
+
+
+class Mlp(nn.Module):
+    """``Mlp`` of the JAX package: hidden layers are Dense (no bias) ->
+    one-pass LayerNorm -> act; with ``is_head`` the last layer is a biased
+    Dense. Dense layers run in ``dtype``; parameters stay float32. Module
+    names are the flax ones (``Dense_{i}``, ``LayerNorm_{i}``)."""
+
+    def __init__(self, in_dim: int, hidden_dims: Sequence[int],
+                 is_head: bool = False, act: str = "gelu",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.act = activation(act)
+        self.num_layers = len(hidden_dims)
+        self.is_head = is_head
+        fin = in_dim
+        for i, c in enumerate(hidden_dims):
+            last_head = is_head and i == self.num_layers - 1
+            self.add_module(f"Dense_{i}", nn.Linear(fin, c, bias=last_head))
+            if not last_head:
+                self.add_module(f"LayerNorm_{i}", nn.LayerNorm(c, eps=LN_EPS))
+            fin = c
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        for i in range(self.num_layers):
+            x = dense(getattr(self, f"Dense_{i}"), x, self.dtype)
+            if not (self.is_head and i == self.num_layers - 1):
+                x = self.act(one_pass_ln(getattr(self, f"LayerNorm_{i}"), x))
+        return x
+
+
+class VfeLayer(nn.Module):
+    """``VfeLayer`` of the JAX package: Dense (no bias) -> one-pass
+    LayerNorm -> act, in ``dtype``."""
+
+    def __init__(self, in_dim: int, out_channels: int, act: str = "gelu",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.act = activation(act)
+        self.Dense_0 = nn.Linear(in_dim, out_channels, bias=False)
+        self.LayerNorm_0 = nn.LayerNorm(out_channels, eps=LN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = one_pass_ln(self.LayerNorm_0, dense(self.Dense_0, x, self.dtype))
+        return self.act(x).to(self.dtype)
+
+
+def sinusoidal_position_encoding(positions: torch.Tensor, d_model: int
+                                 ) -> torch.Tensor:
+    """Frame-index encoding: [sin(p * div), cos(p * div)], the halves
+    concatenated (not interleaved); float32."""
+    dev = positions.device
+    # -log(10000) / d_model in float32 arithmetic, as jnp computes it
+    step = -np.log(np.float32(10000.0)) / np.float32(d_model)
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32,
+                                 device=dev) * float(step))
+    ang = positions[..., None].float() * div
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
+def nerf_position_encoding(xyz: torch.Tensor, num_freqs: int = 10,
+                           bound=(-8.0, -8.0, -4.0, 8.0, 8.0, 4.0)
+                           ) -> torch.Tensor:
+    """Query-point encoding: normalise to [-1, 1] by ``bound`` (6 values,
+    or a tensor of them on the queries' device), then sin(pi x 2^k) and
+    cos(pi x 2^k), concatenated on the frequency axis and flattened over
+    (frequency, xyz) to ``2 * num_freqs * 3`` channels."""
+    b = torch.as_tensor(bound, dtype=xyz.dtype, device=xyz.device)
+    lo, hi = b[:3], b[3:]
+    x = (xyz - lo) / (hi - lo) * 2.0 - 1.0
+    freqs = 2.0 ** torch.arange(num_freqs, dtype=xyz.dtype,
+                                device=xyz.device)
+    # the angles in the JAX order, (pi * x) * 2^k: they reach 512 pi
+    ang = (math.pi * x)[..., None, :] * freqs[:, None]      # [..., F, 3]
+    out = torch.cat([torch.sin(ang), torch.cos(ang)], -2)
+    return out.reshape(out.shape[:-2] + (2 * num_freqs * 3,))

@@ -19,7 +19,10 @@ def test_port_sources_exist():
     assert {"chip_smoke.py", "window_attention.py", "sst.py",
             "convert.py", "anchor_head.py", "detector_trainer.py",
             "optim.py", "trainer.py", "frame_dataset.py", "train.py",
-            "benchmark.py"} <= names
+            "benchmark.py", "ococcnet_config.py", "boxes.py", "coder.py",
+            "roi_pool.py", "masked.py", "packed.py", "layers.py", "sir.py",
+            "transformer.py", "occ_decoder.py", "ococcnet.py",
+            "synthetic.py", "tracklet.py"} <= names
     csrc = ROOT / "objectcentricocccompletion_torch" / "csrc"
     assert {"window_attention.cu", "window_attention_bwd.cu"} <= \
         {p.name for p in csrc.glob("*.cu")}
