@@ -13,12 +13,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    version on the card at both production shapes (small level W=3200, T=32;
    large level W=800, T=144; C=128, H=8) and at the shapes of
    ``CHECK_SHAPES`` (head dims 8 and 32, ragged T=20 and T=100), in float32
-   (the CUDA-core kernel, atol 1e-5) and bfloat16 (the tensor-core kernel,
-   atol 2e-2, compared in float32), with random masks and one window in
-   eight fully masked (exactly the mean of v). Time the kernel, the plain
-   version and ``scaled_dot_product_attention`` (a yardstick only; the port
-   never calls it) with CUDA events, medians of 20 calls each, beside the
-   bound (``attention_bound_ms``) and the exponentials' floor.
+   (the 3xTF32 tensor-core kernel, atol 1e-5) and bfloat16 (the bf16
+   tensor-core kernel, atol 2e-2, compared in float32), with random masks
+   and one window in eight fully masked (exactly the mean of v). Time the
+   kernel, the plain version and ``scaled_dot_product_attention`` (a
+   yardstick only; the port never calls it) with CUDA events, medians of 20
+   calls each, beside the bound (``attention_bound_ms``) and the
+   exponentials' floor.
 3. Run full-width ``SSTDetector(SSTDetectorConfig())`` inference in bfloat16
    through the benchmark entry point's functions on two seeded synthetic
    frames (dense: 150000 points; sparse: 20000). The launch counts are set
@@ -39,22 +40,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    Then both kernels, both dtypes, at the dense frame's occupancy (99% of
    the T=32 windows and 65% of the T=144 windows fully masked): checked
    against the plain versions and timed beside their bounds.
-5. Train full-width SST in bfloat16 through the port's training CLI
-   (``tools/train.py sst``'s ``main``) for 6 steps on 3 file-backed
-   synthetic frames at production scale (``write_synthetic_frames``:
-   120000 points, 40 boxes). The launch counts are set to 0 just before
-   and read after every step: each step must launch exactly 24 forward and
-   24 backward kernels (12 per level). Every logged loss and ``grad_norm``
-   must be finite, the parameters must have moved, and a checkpoint must
-   exist. Prints ms/step (median of steps 3-6) and the peak memory.
+5. Train full-width SST through the port's training CLI (``tools/train.py
+   sst``'s ``main``) on 3 file-backed synthetic frames at production scale
+   (``write_synthetic_frames``: 120000 points, 40 boxes): 6 steps in
+   bfloat16 (``--dtype bfloat16``), then 4 steps without ``--dtype``, in
+   the detector's default float32, each under PyTorch's default TF32
+   settings as the CLI's own process runs. The launch counts are set to 0
+   just before and read after every step: each step must launch exactly 24
+   forward and 24 backward kernels (12 per level). Every logged loss and
+   ``grad_norm`` must be finite, the parameters must have moved, and a
+   checkpoint must exist. Prints ms/step (median of the steps from the
+   third on) and the peak memory, and each run's seconds.
 6. One dense frame through ``SSTDetector.loss`` and backward in float32
    (TF32 off), at full width with the depth cut to 2 blocks (the time
    limit), with the kernels and with ``use_pallas_attention=False`` (the
    einsum differentiated by autograd), same weights: every parameter's
    gradient must agree within 1e-3 * its max |grad| + 1e-5 * the largest
-   |grad| of the model. Phases 3 and 6 count the float32 kernels' launches
-   (12 forward per level in the frame; 4 forward and 4 backward per level
-   in the gradient check).
+   |grad| of the model (4 forward and 4 backward launches per level).
 7. OcOccNet serving (predict, then the occupancy decode), full-width
    ``OcOccNetConfig()`` with seeded random weights on
    ``synthetic_batch(batch_size=4)``, through the ``ococcnet`` benchmark's
@@ -68,9 +70,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (TF32 off) on the card against the port on the CPU (one tracklet, same
    weights) at a stated tolerance, and the largest bf16-vs-float32
    difference of the outputs, held to a stated tolerance too.
-8. Print the kernels' JSON line (the bf16 tensor-core kernels and the
-   float32 CUDA-core kernels, each level apart), then as the last line
-   ``{"ok": true, "device": {...}}``.
+8. Print the kernels' JSON line (the bf16 and the float32 tensor-core
+   kernels, each level apart; launches of the bf16 frames and bf16
+   training, and of the float32 frame and float32 training), then as the
+   last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where ``torch.cuda.is_available()``
 is false or the port's package is missing.
@@ -100,13 +103,17 @@ from objectcentricocccompletion_torch.tools import benchmark as bench
 from objectcentricocccompletion_torch.tools import train as train_cli
 from objectcentricocccompletion_torch.utils.device import card_info
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s; bf16 tensor-core
-# and float32 (non-tensor) FLOP/s; exp2 (16 per clock on each of 132 SMs at
-# the 1.98 GHz boost clock)
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s; tensor-core
+# FLOP/s; exp2 (16 per clock on each of 132 SMs at the 1.98 GHz boost clock).
+# float32 products must keep float32's accuracy: one TF32 product keeps about
+# 11 bits, three (3xTF32 on hi/lo splits) about 22, so the least time for
+# them is three TF32 products at 494.7 TFLOP/s (the CUDA cores' float32 rate,
+# 67 TFLOP/s, is slower still)
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 494.7e12 / 3}
 PEAK_EX2 = 16 * 132 * 1.98e9
-# exponentials per (query, key, head) of the bf16 kernels: forward, backward
+# exponentials per (query, key, head) of the kernels (both dtypes): forward,
+# backward
 EX2_PER_PAIR = (1, 2)
 ATTN_SHAPES = ((3200, 32), (800, 144))   # (W, T) of the two levels
 C, H = 128, 8
@@ -128,7 +135,7 @@ TIMED_FRAMES = 5
 BWD_ATOL_FP32 = 1e-4
 # bf16: one rounding of each output (8 bits) on values up to max|ref|
 BWD_RTOL_BF16 = 2 ** -7
-TRAIN_STEPS = 6
+TRAIN_STEPS = {"bfloat16": 6, None: 4}   # per --dtype (None: the default)
 TRAIN_TIMED_FROM = 3            # steps 1-2 build the model and warm up
 # fp32 gradients, kernels vs einsum autograd, full width, depth cut to 2
 # blocks: float32 sums in another order through 4 attention layers, the
@@ -215,7 +222,7 @@ def attention_bound_ms(mask, C, dtype, backward=False):
 
 
 def ex2_floor_ms(mask, H, backward=False):
-    """The bf16 kernels' exponentials (one per query, key and head of every
+    """The kernels' exponentials (one per query, key and head of every
     window with a valid key in the forward, two in the backward) at the
     card's exp2 rate: a floor beside the bound."""
     W, T = mask.shape
@@ -270,7 +277,7 @@ def phase_kernel_vs_plain():
             log(f"attention W={W} T={T} {str(dtype)[6:]}: max_abs_err "
                 f"{err:.3e} (fully masked {err_full:.3e}) kernel {ms:.4f} ms"
                 f" plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound "
-                f"{bound_ms:.4f} ms ({bound_by}) ex2 floor (bf16 kernel) "
+                f"{bound_ms:.4f} ms ({bound_by}) ex2 floor "
                 f"{ex2_floor_ms(mask, H):.4f} ms; occupied tokens "
                 f"{mask.float().mean().item():.3f}")
     return rows
@@ -350,7 +357,7 @@ def phase_bwd_kernel_vs_plain():
             log(f"attention bwd W={W} T={T} {str(dtype)[6:]}: max_abs_err "
                 f"{err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
                 f"sdpa bwd {library_ms:.4f} ms bound {bound_ms:.4f} ms "
-                f"({bound_by}) ex2 floor (bf16 kernel) "
+                f"({bound_by}) ex2 floor "
                 f"{ex2_floor_ms(mask, H, backward=True):.4f} ms")
     return rows
 
@@ -491,9 +498,12 @@ def phase_fp32_model_check(dev):
     return launches
 
 
-def phase_training(dev):
-    """Full-width bf16 training through the port's CLI; returns the launch
-    counts of the run (forward, backward)."""
+def phase_training(dev, dtype):
+    """Full-width training through the port's CLI, with ``--dtype dtype``
+    or, for None, without it (the detector's default float32); returns the
+    launch counts of the run (forward, backward)."""
+    steps = TRAIN_STEPS[dtype]
+    name = dtype or "float32 (default dtype)"
     per_level = 2 * bench.sst_config().sst.num_blocks   # one per layer
     expect = {32: per_level, 144: per_level}
     with tempfile.TemporaryDirectory() as tmp:
@@ -504,33 +514,39 @@ def phase_training(dev):
         log(f"training: wrote 3 synthetic frames in "
             f"{time.perf_counter() - t:.1f} s")
         work = os.path.join(tmp, "work")
-        steps = []
+        steps_seen = []
 
         def hook(step, metrics):
             torch.cuda.synchronize()
-            steps.append((step, time.perf_counter(), dict(wa.LAUNCHES),
-                          dict(wa.BWD_LAUNCHES)))
+            steps_seen.append((step, time.perf_counter(), dict(wa.LAUNCHES),
+                               dict(wa.BWD_LAUNCHES)))
 
+        argv = ["sst", "--infos", infos, "--data-root", data, "--total-steps",
+                str(steps), "--log-interval", "1", "--work-dir", work,
+                "--device", "cuda", "--seed", "0"]
+        if dtype:
+            argv += ["--dtype", dtype]
+        # as the CLI's own process runs: PyTorch's defaults (cuDNN may use
+        # TF32, matmuls may not), which the float32 checks turned off
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = False
         torch.cuda.reset_peak_memory_stats(dev)
         wa.LAUNCHES.clear()
         wa.BWD_LAUNCHES.clear()
         t0 = time.perf_counter()
-        done = train_cli.main(
-            ["sst", "--infos", infos, "--data-root", data, "--total-steps",
-             str(TRAIN_STEPS), "--dtype", "bfloat16", "--log-interval", "1",
-             "--work-dir", work, "--device", "cuda", "--seed", "0"],
-            hooks=[hook])
+        done = train_cli.main(argv, hooks=[hook])
         fwd, bwd = dict(wa.LAUNCHES), dict(wa.BWD_LAUNCHES)
         peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        if done != TRAIN_STEPS or len(steps) != TRAIN_STEPS:
-            raise AssertionError(f"training ran {len(steps)} steps")
+        if done != steps or len(steps_seen) != steps:
+            raise AssertionError(f"{name} training ran {len(steps_seen)} "
+                                 f"steps")
         prev = (t0, {}, {})
         times = []
-        for step, now, f, b in steps:
+        for step, now, f, b in steps_seen:
             df = {T: n - prev[1].get(T, 0) for T, n in f.items()}
             db = {T: n - prev[2].get(T, 0) for T, n in b.items()}
             if df != expect or db != expect:
-                raise AssertionError(f"training step {step}: forward "
+                raise AssertionError(f"{name} training step {step}: forward "
                                      f"launches {df}, backward {db}, "
                                      f"expected {expect} each")
             times.append((now - prev[0]) * 1e3)
@@ -538,20 +554,20 @@ def phase_training(dev):
         rows = [json.loads(line) for line in
                 open(os.path.join(work, "metrics.jsonl"))]
         keys = ("loss", "loss_cls", "loss_bbox", "loss_dir", "grad_norm")
-        if [r["step"] for r in rows] != list(range(1, TRAIN_STEPS + 1)) or \
+        if [r["step"] for r in rows] != list(range(1, steps + 1)) or \
                 not all(abs(r[k]) < float("inf") for r in rows for k in keys):
-            raise AssertionError(f"training metrics {rows}")
+            raise AssertionError(f"{name} training metrics {rows}")
         for r in rows:
-            log("training step " + " ".join(
+            log(f"training {name} step " + " ".join(
                 f"{k}={r[k]}" for k in ("step",) + keys + ("num_pos_anchors",
                                                            "frames_per_sec")))
-        ckpt = os.path.join(work, "ckpt", f"step_{TRAIN_STEPS}.pt")
+        ckpt = os.path.join(work, "ckpt", f"step_{steps}.pt")
         if not os.path.exists(ckpt):
             raise AssertionError(f"no checkpoint at {ckpt}")
         trained = torch.load(ckpt, map_location="cpu",
                              weights_only=True)["model"]
     # the CLI's init: the same config and seed, on the CPU
-    init = SSTDetector(train_cli.sst_train_config(dtype="bfloat16"), "cpu",
+    init = SSTDetector(train_cli.sst_train_config(dtype=dtype), "cpu",
                        torch.Generator().manual_seed(0)).state_dict()
     # the attention key biases may stay: their exact gradient is 0 (the
     # softmax is invariant to them) and biases take no weight decay
@@ -560,9 +576,9 @@ def phase_training(dev):
         raise AssertionError(f"parameters did not move: {same}")
     timed = times[TRAIN_TIMED_FROM - 1:]
     step_ms = statistics.median(timed)
-    log(f"training: {TRAIN_STEPS} bf16 steps at full width, "
+    log(f"training: {steps} {name} steps at full width, "
         f"{step_ms:.3f} ms/step (median of steps {TRAIN_TIMED_FROM}-"
-        f"{TRAIN_STEPS}: {[round(x, 3) for x in timed]}; all "
+        f"{steps}: {[round(x, 3) for x in timed]}; all "
         f"{[round(x, 3) for x in times]}), peak memory {peak_gib:.3f} GiB, "
         f"launches forward {fwd} backward {bwd}, "
         f"{len(init) - len(same)} of {len(init)} parameter tensors moved; "
@@ -612,7 +628,6 @@ def phase_fp32_grad_check(dev):
         f"{len(grads[1])} parameters within tolerance, worst {worst[1]} at "
         f"{worst[0]:.3f} of it; largest |grad| {scale:.3e}; launches "
         f"forward {fwd} backward {bwd}")
-    return fwd, bwd
 
 
 def serve(model, batch, queries):
@@ -755,18 +770,21 @@ def main():
     phase_model_occupancy()
     log(f"phase model occupancy: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    train_fwd, train_bwd = phase_training(dev)
+    train_fwd, train_bwd = phase_training(dev, "bfloat16")
     log(f"phase training: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    grad_fwd, grad_bwd = phase_fp32_grad_check(dev)
+    fp32_train_fwd, fp32_train_bwd = phase_training(dev, None)
+    log(f"phase fp32 training (default dtype): "
+        f"{time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_fp32_grad_check(dev)
     log(f"phase fp32 gradient check: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
     phase_ococcnet(dev)
     log(f"phase ococcnet: {time.perf_counter() - t:.1f} s")
 
     # launches on the model's paths: bf16 inference and training run the
-    # tensor-core kernels, the float32 frame and gradient check the
-    # CUDA-core kernels
+    # bf16 kernels, the float32 frame and float32 training the 3xTF32 ones
     src = "objectcentricocccompletion_torch/csrc/"
     fwd_tpu = "objectcentricocccompletion_tpu/ops/pallas_attention.py:25"
     bwd_tpu = ("benchmarks/repro_attn_bwd.py:124 (_attn_bwd_kernel) and :40 "
@@ -779,8 +797,8 @@ def main():
              train_bwd),
             (torch.float32, "fp32", "window_attention.cu",
              "window_attention_bwd.cu",
-             {T: fp32_fwd[T] + grad_fwd[T] for _, T in ATTN_SHAPES},
-             grad_bwd)):
+             {T: fp32_fwd[T] + fp32_train_fwd[T] for _, T in ATTN_SHAPES},
+             fp32_train_bwd)):
         for W, T in ATTN_SHAPES:
             kernels.append(dict(
                 name=f"window_attention_{tag}_T{T}", route="cuda",

@@ -2,7 +2,9 @@
 // (window_attention_tc.cu, window_attention_bwd_tc.cu): warp-level
 // mma.sync m16n8k16 (bf16 in, float32 accumulate), ldmatrix fragment loads,
 // cp.async staging of a window's head group in shared memory, the key mask,
-// and the closed-form result of a window whose keys are all masked.
+// and the closed-form result of a window whose keys are all masked. The
+// float32 kernels' tf32_tiles.cuh uses the pieces that do not depend on the
+// element type (cp.async, quad reductions, the key bias, warps per block).
 //
 // Layout in shared memory. A block owns one window and a group of G adjacent
 // heads. Each staged tensor (q, k, v or g) is [Tp][rs] bf16: Tp = T rounded

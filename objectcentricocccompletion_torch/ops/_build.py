@@ -23,7 +23,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # name -> (argtypes, restype) of each library's C entry points: the float32
-# CUDA-core kernels and the bf16 tensor-core kernels
+# (3xTF32) and the bf16 tensor-core kernels
 _FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _SIGNATURES = {

@@ -5,14 +5,15 @@ counts.
 Counterpart of ``objectcentricocccompletion_tpu/ops/pallas_attention.py``:
 
 - the forward kernels replace the TPU kernel ``_attn_kernel`` launched by
-  ``pallas_window_attention``: ``csrc/window_attention_tc.cu`` (bfloat16,
-  tensor cores) and ``csrc/window_attention.cu`` (float32, CUDA cores);
+  ``pallas_window_attention``: ``csrc/window_attention_tc.cu`` (bfloat16)
+  and ``csrc/window_attention.cu`` (float32, in 3xTF32), both on the tensor
+  cores;
   :func:`window_attention_plain` is the counterpart of
   ``jnp_window_attention``;
 - the backward kernels replace the TPU kernels ``_attn_bwd_kernel`` and
   ``_attn_bwd_kernel_fullstore`` of ``benchmarks/repro_attn_bwd.py``:
-  ``csrc/window_attention_bwd_tc.cu`` (bfloat16, tensor cores) and
-  ``csrc/window_attention_bwd.cu`` (float32, CUDA cores);
+  ``csrc/window_attention_bwd_tc.cu`` (bfloat16) and
+  ``csrc/window_attention_bwd.cu`` (float32, in 3xTF32);
   :func:`window_attention_bwd_plain` is the counterpart of
   ``xla_chunked_window_attention_bwd``;
 - :func:`window_attention` is differentiable on both devices, as
@@ -39,12 +40,12 @@ LAUNCHES: collections.Counter = collections.Counter()
 BWD_LAUNCHES: collections.Counter = collections.Counter()
 
 _HEAD_DIMS = (8, 16, 32)
+# window capacities the kernels take, both dtypes. A block stages q, k and v
+# (the backward also g) of at least one head in shared memory; at these
+# limits and hd = 32 that is at most 218 KB (float32 forward) and 147 KB
+# (float32 backward), within the 227 KB a block may use on the H100
 _MAX_T = 512
-_MAX_SMEM = 48 * 1024
-# the backward stages q, k, v, g and four row vectors: (4 hd + 4) T floats,
-# with at most 256 threads (one per row) in a block
 _BWD_MAX_T = 256
-_BWD_MAX_SMEM = 227 * 1024
 # target live [chunk, H, T, T] float32 footprint of the plain backward (the
 # JAX package's CHUNK_BYTES)
 CHUNK_BYTES = 256 << 20
@@ -149,9 +150,9 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hd = C // num_heads
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {_HEAD_DIMS}")
-    if not 1 <= T <= _MAX_T or (2 * hd + 1) * T * 4 > _MAX_SMEM:
+    if not 1 <= T <= _MAX_T:
         raise ValueError(f"window capacity T={T} outside the kernel's "
-                         f"limits for head dim {hd}")
+                         f"limit {_MAX_T}")
 
 
 def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -165,11 +166,10 @@ def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"on {g.device}")
     if not g.is_contiguous() or g.data_ptr() % 16:
         raise ValueError("g must be contiguous and 16-byte aligned")
-    W, T, C = q.shape
-    hd = C // num_heads
-    if T > _BWD_MAX_T or (4 * hd + 4) * T * 4 > _BWD_MAX_SMEM:
+    T = q.shape[1]
+    if T > _BWD_MAX_T:
         raise ValueError(f"window capacity T={T} outside the backward "
-                         f"kernel's limits for head dim {hd}")
+                         f"kernel's limit {_BWD_MAX_T}")
 
 
 def _stream(device: torch.device) -> int:
@@ -253,10 +253,12 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k and v.
 
     On CUDA tensors the forward and the backward each launch a hand-written
-    Hopper kernel, and raise if it does not take the inputs: bfloat16 goes
-    to the tensor-core kernels (``csrc/window_attention_tc.cu``,
-    ``csrc/window_attention_bwd_tc.cu``), float32 to the CUDA-core kernels
-    (``csrc/window_attention.cu``, ``csrc/window_attention_bwd.cu``). They
+    Hopper tensor-core kernel, and raise if it does not take the inputs:
+    bfloat16 goes to ``csrc/window_attention_tc.cu`` and
+    ``csrc/window_attention_bwd_tc.cu``, float32 (SST's default compute
+    dtype) to ``csrc/window_attention.cu`` and
+    ``csrc/window_attention_bwd.cu``, whose products run as three TF32
+    products each (3xTF32) to keep float32's accuracy. They
     replace the TPU kernels ``pallas_attention.py::_attn_kernel`` and
     ``repro_attn_bwd.py::_attn_bwd_kernel`` / ``_attn_bwd_kernel_fullstore``.
     On CPU tensors they run :func:`window_attention_plain` and
@@ -268,6 +270,8 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     large level W=800, T=144, C=128: 35.2 us at 3.35 TB/s), and take one
     exponential per (query, key, head) (132.7 M there: 32 us at 16 ex2 per
     clock and SM); its products take 8.6 us at the bf16 tensor-core peak.
-    Each source's note gives its bound and design.
+    float32 forward: bytes, 235.9 MB there (70.4 us); its products take
+    51 us in 3xTF32 at 494.7 / 3 TFLOP/s. Each source's note gives its
+    bound and design.
     """
     return WindowAttention.apply(q, k, v, mask, num_heads)
