@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SST inference and training paths and its
-OcOccNet serving path on one CUDA card.
+OcOccNet serving and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -28,7 +28,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    must be finite and of the predict shapes. Then one frame in float32
    (TF32 off) with the kernel and with the plain attention, same weights,
    compared at a stated tolerance; and the same frame through the port on
-   the CPU (the path the CPU tests hold to the JAX package).
+   the CPU (the path the CPU tests hold to the JAX package), from the card
+   with TF32 off and again under the training CLI's settings (cuDNN
+   convolutions in TF32, matmuls not), each at its stated tolerance.
 4. Hold the window-attention backward kernel against its plain PyTorch
    version (``window_attention_bwd_plain``) on the card at both production
    shapes and at ``CHECK_SHAPES``, in float32 (max abs err <= 1e-4) and
@@ -70,7 +72,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (TF32 off) on the card against the port on the CPU (one tracklet, same
    weights) at a stated tolerance, and the largest bf16-vs-float32
    difference of the outputs, held to a stated tolerance too.
-8. Print the kernels' JSON line (the bf16 and the float32 tensor-core
+8. OcOccNet training at the full width of ``OcOccNetConfig()`` through the
+   port's CLI (``tools/train.py ococcnet``'s ``main``) on 8 synthetic
+   tracklets in the reference's layout (``write_synthetic_dataset``), batch
+   4, in bfloat16 (``--dtype bfloat16``, the config's dropout on): 6 steps,
+   then 2 more with ``--fixed-ae``. No hand-written kernel lies on this
+   path (launches must read 0). Every logged loss and ``grad_norm`` must be
+   finite, ``metrics.jsonl`` must hold every step, the parameters must
+   have moved (under ``--fixed-ae`` all but ``ae_encoder``'s, which must
+   not). Prints ms/step (median from the third step) and the peak memory
+   with the card's name. Then one float32 step (TF32 off, dropout 0) of
+   one tracklet on the card against the same step of the port on the CPU:
+   the loss dict, ``grad_norm`` and every parameter after the update, each
+   at a stated tolerance.
+9. Print the kernels' JSON line (the bf16 and the float32 tensor-core
    kernels, each level apart; launches of the bf16 frames and bf16
    training, and of the float32 frame and float32 training), then as the
    last line ``{"ok": true, "device": {...}}``.
@@ -90,6 +105,9 @@ import torch
 
 from objectcentricocccompletion_torch.data.frame_dataset import (
     write_synthetic_frames)
+from objectcentricocccompletion_torch.data.loader import (
+    write_synthetic_dataset)
+from objectcentricocccompletion_torch.data.synthetic import synthetic_batch
 from objectcentricocccompletion_torch.data.tracklet import TrackletBatch
 from objectcentricocccompletion_torch.evalx.detector_eval import (
     make_predict_fn)
@@ -98,6 +116,8 @@ from objectcentricocccompletion_torch.models.ococcnet import (
 from objectcentricocccompletion_torch.models.sst_detector import SSTDetector
 from objectcentricocccompletion_torch.ops import _build
 from objectcentricocccompletion_torch.ops import voxelize as vx
+from objectcentricocccompletion_torch.parallel.train import (
+    create_train_state, make_train_step)
 from objectcentricocccompletion_torch.ops import window_attention as wa
 from objectcentricocccompletion_torch.tools import benchmark as bench
 from objectcentricocccompletion_torch.tools import train as train_cli
@@ -160,6 +180,30 @@ OCC_KEYS = ("cls_logit", "bbox_pred", "shape_latent", "occ_logits")
 # decoder, on O(1) outputs; the CPU tests' bar against JAX bf16 (0.1), over
 # twice the 0.0438 a full-width run of this check reads (PERF.md)
 BF16_OCC_ATOL = 0.1
+# float32 SST frame with cuDNN's convolutions in TF32 (the training CLI's
+# settings) against the CPU: TF32 keeps a 10-bit mantissa, so each product
+# in the neck's 3x3 convolutions (up to 1,152 terms) and the head's 1x1s
+# carries a relative error near 2^-11; over sums of random sign and the
+# neck's GroupNorms that is about 1e-3 of each layer's output, a few layers
+# deep, on maps whose largest values are about 10 (PERF.md section 6)
+FP32_TF32_CPU_ATOL = 3e-2
+# OcOccNet training through the CLI: steps per run, timed from the third
+OCC_TRAIN_STEPS = 6
+OCC_FIXED_AE_STEPS = 2
+OCC_TRAIN_TRACKLETS = 8
+# one float32 training step on the card against the CPU, at lr 1e-3 so that
+# the update shows: the loss dict (O(1)-O(10) values; the forward's 1e-3
+# bar), grad_norm relative, every clipped gradient at the CPU tests' bar
+# against JAX; then every parameter after AdamW's first step, which moves it
+# by about lr in the sign of its gradient: where the CPU's gradient lies
+# within the gradient bar of 0 the two signs may differ (2 lr apart),
+# elsewhere the moves agree to far below 1e-3 lr; plus float32 rounding of
+# O(1) weights
+OCC_STEP_LR = 1e-3
+OCC_STEP_LOSS_ATOL = 1e-3
+OCC_STEP_GRAD_NORM_RTOL = 1e-3
+OCC_STEP_GRAD_ATOL = 1e-4
+OCC_STEP_ROUNDING = 1e-6
 
 
 def log(msg):
@@ -469,7 +513,9 @@ def compare_maps(what, got, ref, atol):
 def phase_fp32_model_check(dev):
     """One dense frame in float32 (TF32 off): the kernel model against the
     same weights with the plain attention on the card, and against the CPU
-    run of the port (the path the CPU tests hold to the JAX package)."""
+    run of the port (the path the CPU tests hold to the JAX package); then
+    the kernel model under the training CLI's TF32 settings against the
+    same CPU run."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = bench.sst_config("float32")
@@ -495,6 +541,17 @@ def phase_fp32_model_check(dev):
     compare_maps("fp32 model, kernel vs plain attention", a, b,
                  FP32_MODEL_ATOL)
     compare_maps("fp32 model, card vs CPU", a, c, FP32_CPU_ATOL)
+    torch.backends.cudnn.allow_tf32 = True
+    with torch.inference_mode():
+        wa.LAUNCHES.clear()
+        d = kern(pts, msk)
+        torch.cuda.synchronize()
+    if dict(wa.LAUNCHES) != launches:
+        raise AssertionError(f"fp32 frame under TF32: launches "
+                             f"{dict(wa.LAUNCHES)}, expected {launches}")
+    compare_maps("fp32 model under the CLI's TF32 settings (cuDNN TF32 on, "
+                 "matmul TF32 off), card vs CPU", d, c, FP32_TF32_CPU_ATOL)
+    torch.backends.cudnn.allow_tf32 = False
     return launches
 
 
@@ -738,6 +795,153 @@ def phase_ococcnet(dev):
                              f"{bad}")
 
 
+def ococc_cli_run(dev, paths, work, steps, extra=()):
+    """``tools/train.py ococcnet`` on the synthetic tracklets at full width
+    in bf16; returns each step's ms, the trained weights and the peak
+    GiB."""
+    argv = ["ococcnet", "--proposals", paths["proposals_file"],
+            "--gt-candidates", paths["gt_candidates_file"], "--poses",
+            paths["pose_file"], "--occ-root", paths["occ_anno_root"],
+            "--total-steps", str(steps), "--log-interval", "1",
+            "--work-dir", work, "--device", "cuda", "--seed", "0",
+            "--dtype", "bfloat16", *extra]
+    stamps = []
+
+    def hook(step, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    done = train_cli.main(argv, hooks=[hook])
+    launched = dict(wa.LAUNCHES), dict(wa.BWD_LAUNCHES)
+    if done != steps or len(stamps) != steps:
+        raise AssertionError(f"ococcnet training ran {len(stamps)} steps")
+    if any(launched):
+        raise AssertionError(f"ococcnet training: hand-written kernels "
+                             f"launched {launched}; the path has none")
+    times = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+    rows = [json.loads(line)
+            for line in open(os.path.join(work, "metrics.jsonl"))]
+    keys = ("loss", "loss_rcnn_cls", "loss_rcnn_bbox", "loss_rcnn_occ",
+            "grad_norm")
+    if [r["step"] for r in rows] != list(range(1, steps + 1)) or \
+            not all(abs(r[k]) < float("inf") for r in rows for k in keys):
+        raise AssertionError(f"ococcnet training metrics {rows}")
+    for r in rows:
+        log("ococcnet training step " + " ".join(
+            f"{k}={r[k]}" for k in ("step",) + keys + (
+                "num_pos_rois", "lr", "tracklets_per_sec")))
+    trained = torch.load(os.path.join(work, "ckpt", f"step_{steps}.pt"),
+                         map_location="cpu", weights_only=True)["model"]
+    return times, trained, torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+
+def phase_ococc_training(dev):
+    """Full-width OcOccNet training through the CLI in bf16, then
+    ``--fixed-ae``."""
+    cfg = train_cli.ococc_train_config(dtype="bfloat16")
+    init = OcOccNetWithLoss(cfg, "cpu",
+                            torch.Generator().manual_seed(0)).state_dict()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_synthetic_dataset(os.path.join(tmp, "data"),
+                                        num_tracklets=OCC_TRAIN_TRACKLETS,
+                                        seed=0)
+        times, trained, peak = ococc_cli_run(
+            dev, paths, os.path.join(tmp, "work"), OCC_TRAIN_STEPS)
+        # the attention key biases may stay: their exact gradient is 0 (the
+        # softmax is invariant to them) and biases take no weight decay
+        same = [n for n, p in init.items() if torch.equal(p, trained[n])]
+        if any(not n.endswith(".k.bias") for n in same):
+            raise AssertionError(f"ococcnet parameters did not move: {same}")
+        timed = times[TRAIN_TIMED_FROM - 1:]
+        step_ms = statistics.median(timed)
+        log(f"ococcnet training: {OCC_TRAIN_STEPS} bf16 steps at full width,"
+            f" batch {cfg.batch_size}, {step_ms:.3f} ms/step (median of "
+            f"steps {TRAIN_TIMED_FROM}-{OCC_TRAIN_STEPS}: "
+            f"{[round(x, 3) for x in timed]}; all "
+            f"{[round(x, 3) for x in times]}), "
+            f"{cfg.batch_size * 1e3 / step_ms:.2f} tracklets/s, peak memory "
+            f"{peak:.3f} GiB, {len(init) - len(same)} of {len(init)} "
+            f"parameter tensors moved; card {card_info()}")
+        _, frozen, _ = ococc_cli_run(dev, paths,
+                                     os.path.join(tmp, "work_fixed_ae"),
+                                     OCC_FIXED_AE_STEPS, ["--fixed-ae"])
+    moved_ae = [n for n, p in init.items()
+                if ".ae_encoder." in n and not torch.equal(p, frozen[n])]
+    same = [n for n, p in init.items() if ".ae_encoder." not in n
+            and torch.equal(p, frozen[n]) and not n.endswith(".k.bias")]
+    if moved_ae or same:
+        raise AssertionError(f"--fixed-ae: ae_encoder moved {moved_ae}, "
+                             f"others did not {same}")
+    log(f"ococcnet training --fixed-ae: {OCC_FIXED_AE_STEPS} steps, the "
+        f"ae_encoder's {sum('.ae_encoder.' in n for n in init)} tensors "
+        f"unchanged, the rest moved")
+
+
+def phase_ococc_fp32_step(dev):
+    """One float32 training step (TF32 off, dropout 0, lr ``OCC_STEP_LR``)
+    of one tracklet at full width, on the card and on the CPU from the same
+    weights: the loss dict, every clipped gradient and every parameter after
+    the update."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(
+        train_cli.ococc_train_config(dtype="float32"), occ_dropout=0.0,
+        attn_dropout=0.0, cls_dropout=0.0, reg_dropout=0.0,
+        latent_dropout=0.0, fusion_dropout=0.0, base_lr=OCC_STEP_LR)
+    batch = TrackletBatch(*(x[:1] for x in synthetic_batch(
+        cfg, batch_size=bench.OCC_BATCH, seed=0)))
+    res = []
+    for where in (dev, torch.device("cpu")):
+        model, optimizer, schedule = create_train_state(cfg, 100, where, 0)
+        init = {n: p.detach().cpu().clone()
+                for n, p in model.named_parameters()}
+        metrics = make_train_step(model, optimizer, schedule)(0, batch)
+        res.append(({k: float(v) for k, v in metrics.items()},
+                    {n: (p.detach().cpu(), p.grad.cpu())
+                     for n, p in model.named_parameters()}))
+    lr = schedule(0)
+    (card, card_p), (cpu, cpu_p) = res
+    for k, ref in cpu.items():
+        err = abs(card[k] - ref)
+        tol = (OCC_STEP_GRAD_NORM_RTOL * ref if k == "grad_norm"
+               else OCC_STEP_LOSS_ATOL)
+        log(f"ococcnet fp32 step, card vs CPU: {k} {card[k]:.6f} vs "
+            f"{ref:.6f}, err {err:.3e} (tolerance {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"ococcnet fp32 step {k}: {err} > {tol}")
+    grad_err = max((float((card_p[n][1] - g).abs().max()), n)
+                   for n, (_, g) in cpu_p.items())
+    log(f"ococcnet fp32 step, card vs CPU: {len(cpu_p)} clipped gradients, "
+        f"worst {grad_err[1]} at {grad_err[0]:.3e} (tolerance "
+        f"{OCC_STEP_GRAD_ATOL})")
+    if not grad_err[0] <= OCC_STEP_GRAD_ATOL:
+        raise AssertionError(f"ococcnet fp32 step gradients: {grad_err}")
+    # the largest difference where the CPU's gradient lies within the
+    # gradient bar of 0 (signs may differ), and where it does not
+    near = far = moved = 0.0
+    for n, (p, g) in cpu_p.items():
+        diff = (card_p[n][0] - p).abs()
+        small = g.abs() < OCC_STEP_GRAD_ATOL
+        near = max(near, float(torch.where(small, diff, 0).max()))
+        far = max(far, float(torch.where(small, 0, diff).max()))
+        moved = max(moved, float((p - init[n]).abs().max()))
+    near_tol = OCC_STEP_ROUNDING + 2 * lr
+    far_tol = OCC_STEP_ROUNDING + 1e-3 * lr
+    log(f"ococcnet fp32 step, card vs CPU: {len(cpu_p)} parameters after "
+        f"the update at lr {lr:.3e} (largest move {moved:.3e}): {near:.3e} "
+        f"where |g| < {OCC_STEP_GRAD_ATOL} (tolerance {near_tol:.3e}), "
+        f"{far:.3e} elsewhere (tolerance {far_tol:.3e})")
+    if not (near <= near_tol and far <= far_tol):
+        raise AssertionError(f"ococcnet fp32 step parameters: {near}, {far}")
+    if not moved > 0.5 * lr:
+        raise AssertionError(f"ococcnet fp32 step: no parameter moved by "
+                             f"half of lr {lr}: {moved}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -782,6 +986,12 @@ def main():
     t = time.perf_counter()
     phase_ococcnet(dev)
     log(f"phase ococcnet: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_ococc_training(dev)
+    log(f"phase ococcnet training: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    phase_ococc_fp32_step(dev)
+    log(f"phase ococcnet fp32 step: {time.perf_counter() - t:.1f} s")
 
     # launches on the model's paths: bf16 inference and training run the
     # bf16 kernels, the float32 frame and float32 training the 3xTF32 ones

@@ -1,5 +1,6 @@
 """Shared building blocks (counterpart of the JAX package's
-``models/layers.py``, the parts the SST and OcOccNet forward paths use)."""
+``models/layers.py``, the parts the SST and OcOccNet paths use), with the
+JAX package's counter-hash dropout."""
 from __future__ import annotations
 
 import math
@@ -110,17 +111,94 @@ def activation(name: str):
             "leakyrelu": F.leaky_relu}[name]
 
 
+_U32 = 0xFFFFFFFF
+
+
+def _mul_u32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """``h * c`` modulo 2^32 for uint32 values held in int64, in two 16-bit
+    halves of ``c`` so that no product overflows int64."""
+    lo = h * (c & 0xFFFF)
+    hi = ((h * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def hash_bits(key: torch.Tensor, shape: Sequence[int],
+              offset: int = 0) -> torch.Tensor:
+    """The JAX package's ``_hash_bits``, bit for bit: a murmur3 finalizer
+    over the counter ``offset + iota(prod(shape))``, keyed by the two
+    uint32 words of ``key`` (an int64 tensor ``[2]``). The uint32
+    arithmetic runs in int64 and is masked to 32 bits; returns int64
+    values in [0, 2^32) of ``shape``, on ``key``'s device."""
+    n = math.prod(shape)
+    k0, k1 = key[0], key[-1]
+    h = torch.arange(offset, offset + n, dtype=torch.int64,
+                     device=key.device)
+    h = (_mul_u32(h, 2654435761) + k0) & _U32
+    h = h ^ (h >> 16)
+    h = _mul_u32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = h ^ k1
+    h = _mul_u32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return h.reshape(tuple(shape))
+
+
+class DropoutKeys:
+    """The key words of every dropout site in one training forward, handed
+    out in call order (``keys()`` -> an int64 ``[2]`` tensor).
+
+    ``DropoutKeys(base)``: site ``i`` gets ``hash_bits(base, (2,), 2 * i)``,
+    derived on ``base``'s device with no host synchronisation; the train
+    step passes ``base`` = [seed, step] as a device tensor. ``DropoutKeys(
+    words=[...])`` hands out the given words instead (the tests pass the
+    JAX package's, which flax derives from the module path; the port does
+    not rebuild that stream)."""
+
+    def __init__(self, base: torch.Tensor | None = None,
+                 words: Sequence[torch.Tensor] | None = None):
+        if (base is None) == (words is None):
+            raise ValueError("give exactly one of base and words")
+        self.base, self.words = base, words
+        self.site = 0
+
+    def __call__(self) -> torch.Tensor:
+        i = self.site
+        self.site += 1
+        if self.words is not None:
+            return self.words[i]
+        return hash_bits(self.base, (2,), 2 * i)
+
+
+def dropout(x: torch.Tensor, rate: float, keys: DropoutKeys | None
+            ) -> torch.Tensor:
+    """The JAX package's ``BarrierDropout``: keep where the hash bits are
+    below ``min(round(keep * 2^32), 2^32 - 1)``, and scale the kept values
+    by ``1 / keep`` rounded to float32 and then cast to ``x``'s dtype
+    before the multiply (1/0.9 is 1.109375 in bf16). ``keys`` None (not
+    training) or ``rate`` 0 leave ``x`` as it is."""
+    if keys is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    bits = hash_bits(keys(), x.shape)
+    thresh = min(int(round(keep * 4294967296.0)), _U32)
+    # a host number, exact in x's dtype: no copy to the device
+    scale = float(torch.tensor(1.0 / keep, dtype=torch.float32).to(x.dtype))
+    return x * torch.where(bits < thresh, scale, 0.0).to(x.dtype)
+
+
 class Mlp(nn.Module):
     """``Mlp`` of the JAX package: hidden layers are Dense (no bias) ->
-    one-pass LayerNorm -> act; with ``is_head`` the last layer is a biased
-    Dense. Dense layers run in ``dtype``; parameters stay float32. Module
-    names are the flax ones (``Dense_{i}``, ``LayerNorm_{i}``)."""
+    one-pass LayerNorm -> act -> dropout; with ``is_head`` the last layer
+    is a biased Dense. Dense layers run in ``dtype``; parameters stay
+    float32. Module names are the flax ones (``Dense_{i}``,
+    ``LayerNorm_{i}``)."""
 
     def __init__(self, in_dim: int, hidden_dims: Sequence[int],
                  is_head: bool = False, act: str = "gelu",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.dropout = dropout
         self.act = activation(act)
         self.num_layers = len(hidden_dims)
         self.is_head = is_head
@@ -132,28 +210,34 @@ class Mlp(nn.Module):
                 self.add_module(f"LayerNorm_{i}", nn.LayerNorm(c, eps=LN_EPS))
             fin = c
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keys: DropoutKeys | None = None
+                ) -> torch.Tensor:
+        """``keys``: the dropout keys of a training forward, or None."""
         x = x.to(self.dtype)
         for i in range(self.num_layers):
             x = dense(getattr(self, f"Dense_{i}"), x, self.dtype)
             if not (self.is_head and i == self.num_layers - 1):
                 x = self.act(one_pass_ln(getattr(self, f"LayerNorm_{i}"), x))
+                x = dropout(x, self.dropout, keys)
         return x
 
 
 class VfeLayer(nn.Module):
-    """``VfeLayer`` of the JAX package: Dense (no bias) -> one-pass
-    LayerNorm -> act, in ``dtype``."""
+    """``VfeLayer`` of the JAX package: dropout -> Dense (no bias) ->
+    one-pass LayerNorm -> act, in ``dtype``."""
 
     def __init__(self, in_dim: int, out_channels: int, act: str = "gelu",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.dropout = dropout
         self.act = activation(act)
         self.Dense_0 = nn.Linear(in_dim, out_channels, bias=False)
         self.LayerNorm_0 = nn.LayerNorm(out_channels, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keys: DropoutKeys | None = None
+                ) -> torch.Tensor:
+        x = dropout(x, self.dropout, keys)
         x = one_pass_ln(self.LayerNorm_0, dense(self.Dense_0, x, self.dtype))
         return self.act(x).to(self.dtype)
 

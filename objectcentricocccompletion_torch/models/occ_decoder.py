@@ -4,7 +4,8 @@
 A conditional MLP ``[LN(latent) ; nerf_posenc(query)] -> 512 -> 1024 ->
 1024 -> 1 logit``. The first layer is split (``in_latent``, ``in_pos``):
 the latent's product runs once per RoI and only the 60-wide encoding's
-product runs per query (W [a; b] = W_a a + W_b b).
+product runs per query (W [a; b] = W_a a + W_b b). A training forward
+drops the first layer's and each hidden layer's activations (``dropout``).
 """
 from __future__ import annotations
 
@@ -13,8 +14,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from .layers import (Mlp, activation, dense, nerf_position_encoding,
-                     one_pass_ln)
+from .layers import (DropoutKeys, Mlp, activation, dense, dropout,
+                     nerf_position_encoding, one_pass_ln)
 
 
 class OccDecoder(nn.Module):
@@ -22,8 +23,9 @@ class OccDecoder(nn.Module):
                  mlp_dims: Sequence[int] = (512, 1024, 1024),
                  num_freqs: int = 10, act: str = "gelu",
                  pos_thresh: float = 0.5,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.num_freqs = num_freqs
         self.pos_thresh = pos_thresh
         self.dtype = dtype
@@ -34,23 +36,25 @@ class OccDecoder(nn.Module):
         self.in_pos = nn.Linear(2 * num_freqs * 3, c0, bias=False)
         self.in_norm = nn.LayerNorm(c0, eps=1e-3)
         self.mlp = Mlp(c0, tuple(mlp_dims[1:]) + (1,), is_head=True, act=act,
-                       dtype=dtype)
+                       dtype=dtype, dropout=dropout)
         # the encoding's bound as a constant on the module's device (no
         # host-to-device copy per call)
         self.register_buffer("pos_bound", torch.tensor(
             (-8.0, -8.0, -4.0, 8.0, 8.0, 4.0)), persistent=False)
 
-    def forward(self, latent: torch.Tensor, queries: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, latent: torch.Tensor, queries: torch.Tensor,
+                keys: DropoutKeys | None = None) -> torch.Tensor:
         """latent [..., D], queries [..., K, 3] box-local -> float32
-        occupancy logits [..., K]."""
+        occupancy logits [..., K]; ``keys``: the dropout keys of a training
+        forward, or None."""
         latent = one_pass_ln(self.ln, latent)
         pos = nerf_position_encoding(queries, self.num_freqs,
                                      self.pos_bound)
         x = (dense(self.in_latent, latent, self.dtype)[..., None, :]
              + dense(self.in_pos, pos, self.dtype))
-        x = self.act(one_pass_ln(self.in_norm, x))
-        return self.mlp(x)[..., 0].float()
+        x = dropout(self.act(one_pass_ln(self.in_norm, x)), self.dropout,
+                    keys)
+        return self.mlp(x, keys)[..., 0].float()
 
     def classify(self, logits: torch.Tensor) -> torch.Tensor:
         return (torch.sigmoid(logits) > self.pos_thresh).to(torch.int32)

@@ -11,7 +11,9 @@ package's ``models/sir.py``), in three point layouts:
 All three share one parameter structure. Per block: gate the input by
 ``rel_mlp(f_rel)``, two VFE layers with the broadcast group max
 concatenated after the first; the block's cluster feature is both group
-maxima, and the cluster features of all blocks concatenate.
+maxima, and the cluster features of all blocks concatenate. ``dropout``
+drops each VFE layer's input in a training forward (``keys`` given); no
+configuration of the repo sets it.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from torch import nn
 
 from ..ops import packed as pk
 from ..ops.masked import masked_max, masked_mean
-from .layers import Mlp, VfeLayer
+from .layers import DropoutKeys, Mlp, VfeLayer
 
 
 # f_rel = f_cluster / REL_DIST_SCALER (the reference's rel_dist_scaler)
@@ -40,7 +42,8 @@ class SIRBlock(nn.Module):
     def __init__(self, in_dim: int, rel_dim: int,
                  feat_channels: Sequence[int] = (128, 128),
                  rel_mlp_hidden: Sequence[int] = (16, 32),
-                 act: str = "gelu", dtype: torch.dtype = torch.float32):
+                 act: str = "gelu", dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0):
         super().__init__()
         self.dtype = dtype
         self.num_vfe = len(feat_channels)
@@ -48,15 +51,17 @@ class SIRBlock(nn.Module):
                            act=act, dtype=dtype)
         fin = in_dim
         for i, c in enumerate(feat_channels):
-            self.add_module(f"vfe_{i}", VfeLayer(fin, c, act, dtype))
+            self.add_module(f"vfe_{i}", VfeLayer(fin, c, act, dtype,
+                                                 dropout))
             fin = 2 * c
 
     def forward(self, in_feats: torch.Tensor, f_rel: torch.Tensor,
                 mask: torch.Tensor, seg_ids: torch.Tensor | None = None,
                 num_segments: int | None = None,
-                block_seg: torch.Tensor | None = None):
+                block_seg: torch.Tensor | None = None,
+                keys: DropoutKeys | None = None):
         """Returns (point_feats, cluster feats [G or B x S, sum(feat)])."""
-        x = in_feats.to(self.dtype) * self.rel_mlp(f_rel)
+        x = in_feats.to(self.dtype) * self.rel_mlp(f_rel, keys)
         if seg_ids is None:
             def reduce(x):
                 return masked_max(x, mask, -2)
@@ -79,7 +84,7 @@ class SIRBlock(nn.Module):
 
         cluster = []
         for i in range(self.num_vfe):
-            x = getattr(self, f"vfe_{i}")(x)
+            x = getattr(self, f"vfe_{i}")(x, keys)
             g = reduce(x)
             cluster.append(g)
             if i != self.num_vfe - 1:
@@ -106,7 +111,7 @@ class SIREncoder(nn.Module):
                  rel_mlp_hidden: Sequence[int] = (16, 32),
                  xyz_normalizer: Sequence[float] = (1.0, 1.0, 1.0),
                  geo_input: bool = False, act: str = "gelu",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
         super().__init__()
         self.num_blocks = num_blocks
         # the divisions by the normaliser and the scaler as jitted XLA runs
@@ -119,14 +124,16 @@ class SIREncoder(nn.Module):
         for i in range(num_blocks):
             in_dim = 3 + width + (rel_dim if geo_input else 0)
             self.add_module(f"block_{i}", SIRBlock(
-                in_dim, rel_dim, feat_channels, rel_mlp_hidden, act, dtype))
+                in_dim, rel_dim, feat_channels, rel_mlp_hidden, act, dtype,
+                dropout))
             width = feat_channels[-1]
 
     def forward(self, xyz: torch.Tensor, feats: torch.Tensor,
                 mask: torch.Tensor, f_cluster: torch.Tensor | None = None,
                 seg_ids: torch.Tensor | None = None,
                 num_segments: int | None = None,
-                block_seg: torch.Tensor | None = None):
+                block_seg: torch.Tensor | None = None,
+                keys: DropoutKeys | None = None):
         """Dense: xyz [G, P, 3], feats [G, P, F], mask [G, P] ->
         (point feats [G, P, C], roi feats [G, num_blocks * sum(feat)]).
         Packed (``seg_ids`` [B, N] given): leading dims [B, N]; roi feats
@@ -152,7 +159,7 @@ class SIREncoder(nn.Module):
             parts = [xyz_n, out_feats] + ([f_rel] if self.geo_input else [])
             point_feats, c = getattr(self, f"block_{i}")(
                 torch.cat(parts, -1), f_rel, mask, seg_ids, num_segments,
-                block_seg)
+                block_seg, keys)
             if not self.geo_input and out_feats.shape == point_feats.shape:
                 point_feats = point_feats + out_feats
             out_feats = point_feats

@@ -8,6 +8,8 @@ and ``ococcnet`` families so far).
         --train --frames 10 --dtype bfloat16
     python -m objectcentricocccompletion_torch.tools.benchmark ococcnet \\
         [--frames 20] [--eval-layout dense] [--dtype float32]
+    python -m objectcentricocccompletion_torch.tools.benchmark ococcnet \\
+        --train [--frames 10] [--eval-layout dense] [--dtype float32]
 
 ``sst`` builds the full-width ``SSTDetector(SSTDetectorConfig())`` with
 weights drawn from a seeded ``torch.Generator`` (no checkpoint is needed). By
@@ -28,7 +30,12 @@ batch and, apart, the occupancy decode of the batch's K=512 queries per
 frame (``gt_occ_to_roi_frame`` of the batch's samples), each the median
 over the timed batches after warm-up, and prints the per-batch latency,
 tracklets/s, the decode time, the peak of
-``torch.cuda.max_memory_allocated`` and the points the layout keeps.
+``torch.cuda.max_memory_allocated`` and the points the layout keeps. With
+``--train`` it runs full training steps on that batch instead (the losses
+with the config's dropout, backward, clip, AdamW: ``parallel/train.py``)
+and prints the per-step latency (host clock around a step that ends in a
+device synchronise, median over the timed steps after warm-up),
+tracklets/s and the peak memory over the timed steps.
 
 ``--profile N`` also traces N more frames (steps; for ``ococcnet``
 batches, predict and decode) with ``torch.profiler``, prints the operators
@@ -53,6 +60,7 @@ from ..data.tracklet import TrackletBatch
 from ..evalx.detector_eval import make_predict_fn
 from ..models.ococcnet import OcOccNetWithLoss, gt_occ_to_roi_frame
 from ..models.sst_detector import SSTDetector, SSTDetectorConfig
+from ..parallel.train import create_train_state, make_train_step
 from ..training.detector_trainer import (FrameBatch, collate_frames,
                                          make_detector_train_step)
 from ..training.optim import make_optimizer
@@ -314,6 +322,47 @@ def bench_ococcnet(batches: int = 20, dtype: str = "bfloat16",
     return res
 
 
+def bench_ococcnet_train(steps: int = 10, dtype: str = "bfloat16",
+                         layout: str = "packed", device="cuda",
+                         seed: int = 0, profile_n: int = 0,
+                         cfg: OcOccNetConfig | None = None,
+                         batch: int = OCC_BATCH, warmup: int = 2) -> dict:
+    """OcOccNet training steps at full width on one ``synthetic_batch`` of
+    ``batch`` tracklets; the step time is the median over ``steps`` after
+    ``warmup``; one more step gives the metrics."""
+    dev = resolve_device(device)
+    cfg = ococcnet_config(dtype, layout, cfg)
+    total = warmup + steps + 1 + profile_n
+    model, optimizer, schedule = create_train_state(cfg, total, dev, seed)
+    b = synthetic_batch(cfg, batch_size=batch, seed=seed).to(dev)
+    step_fn = make_train_step(model, optimizer, schedule, seed=seed + 1)
+    count = iter(range(total))
+    for _ in range(warmup):
+        step_fn(next(count), b)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    times = time_calls(lambda: step_fn(next(count), b), steps, dev,
+                       warmup=0)
+    metrics = {k: float(v) for k, v in step_fn(next(count), b).items()}
+    med = statistics.median(times)
+    res = {"family": "ococcnet", "mode": "train", "dtype": dtype,
+           "eval_layout": layout, "batch": batch, "steps": steps,
+           "step_ms": med, "mean_ms": statistics.fmean(times),
+           "fps": batch * 1e3 / med, "unit": "tracklets/sec",
+           "metrics": metrics, **layout_points(model, b),
+           "peak_memory_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
+                               if dev.type == "cuda" else None),
+           "device": str(dev),
+           "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                    else "cpu"),
+           "card": card_info() if dev.type == "cuda" else None}
+    if profile_n:
+        res.update(profile_calls(lambda: step_fn(next(count), b), profile_n,
+                                 dev, unit="step"))
+    return res
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("family", choices=["sst", "ococcnet"])
@@ -334,9 +383,8 @@ def main(argv=None) -> None:
                         "torch.profiler")
     args = p.parse_args(argv)
     if args.family == "ococcnet":
-        if args.train:
-            p.error("ococcnet --train: OcOccNet training is not ported yet")
-        print(json.dumps(bench_ococcnet(
+        bench = bench_ococcnet_train if args.train else bench_ococcnet
+        print(json.dumps(bench(
             args.frames, args.dtype, args.eval_layout, args.device,
             profile_n=args.profile)))
         return

@@ -1,20 +1,32 @@
 """Training CLI of the port (counterpart of the JAX repository's
-``tools/train.py``; the ``sst`` family so far).
+``tools/train.py``; the ``ococcnet``, ``ctrl`` and ``sst`` families so far).
 
+    python -m objectcentricocccompletion_torch.tools.train ococcnet \\
+        --proposals data/proposals.pkl --gt-candidates data/cands.pkl \\
+        --poses data/poses.pkl --occ-root data/occ_gt --total-steps 1000 \\
+        [--ctrl-class veh] [--fixed-ae] [--dtype bfloat16] [--tiny] \\
+        [--device cuda] [--work-dir DIR]
     python -m objectcentricocccompletion_torch.tools.train sst \\
         --infos data/infos.pkl --data-root data --total-steps 1000 \\
         [--dtype bfloat16] [--tiny] [--device cuda] [--work-dir DIR]
 
-Builds ``SSTDetector`` (the full-width ``SSTDetectorConfig()``, or the tiny
-one with ``--tiny``), its weights drawn from a ``torch.Generator`` seeded
-with ``--seed``, reads the frames with ``FrameDataset`` (``--tiny``: 4096
+``ococcnet`` / ``ctrl`` build ``OcOccNetConfig()`` (``--tiny``:
+``tiny_config()``; ``ctrl``: the CTRL class variant of ``--ctrl-class``),
+read the tracklets with ``TrackletDataset`` and train with
+``training/trainer.py::train``; ``data/loader.py::write_synthetic_dataset``
+writes a dataset in the reference's layout for it. ``sst`` builds
+``SSTDetector`` (the full-width ``SSTDetectorConfig()``, or the tiny one
+with ``--tiny``), reads the frames with ``FrameDataset`` (``--tiny``: 4096
 points and 32 boxes per frame, as the JAX CLI) and trains with
-``train_detector`` on ``--device`` (``cuda`` unless the caller asks for
-the CPU). ``write_synthetic_frames`` (``data/frame_dataset.py``) writes a
-production-scale synthetic dataset for it.
+``train_detector``; ``write_synthetic_frames`` (``data/frame_dataset.py``)
+writes a production-scale synthetic dataset for it. Weights are drawn from
+a ``torch.Generator`` seeded with ``--seed``; everything runs on
+``--device`` (``cuda`` unless the caller asks for the CPU). ``--dtype``
+sets the compute dtype; parameters stay float32.
 
-The flags of the JAX CLI's frame branch are kept. Those of options not
-ported yet (other model families and datasets, ``--occ-pred-root``,
+The flags of the JAX CLI are kept. Those of options not ported yet (other
+model families and datasets, ``--tp``, ``--fsdp``, ``--sequence-parallel``,
+``--loader-workers`` > 0, the multi-host launch, ``--occ-pred-root``,
 ``--num-sweeps``, ``--augment``, ``--disable-aug-after``, ``--gt-sample``)
 raise ``NotImplementedError``.
 """
@@ -26,10 +38,15 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..configs.ococcnet_config import (OcOccNetConfig, ctrl_cyc_config,
+                                       ctrl_ped_config, ctrl_veh_config,
+                                       tiny_config)
 from ..data.frame_dataset import FrameDataset
+from ..data.tracklet_dataset import TrackletDataset
 from ..models.sst_detector import (SSTDetector, SSTDetectorConfig,
                                    tiny_sst_detector_config)
 from ..training.detector_trainer import train_detector
+from ..training.trainer import train
 from ..utils.device import resolve_device
 
 FAMILIES = ["ococcnet", "ctrl", "centerpoint", "sst", "fsd", "fsd2",
@@ -39,6 +56,11 @@ FAMILIES = ["ococcnet", "ctrl", "centerpoint", "sst", "fsd", "fsd2",
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser()
     p.add_argument("model", choices=FAMILIES, help="model family to train")
+    # tracklet-family inputs (ococcnet / ctrl)
+    p.add_argument("--proposals")
+    p.add_argument("--gt-candidates")
+    p.add_argument("--poses")
+    p.add_argument("--occ-root", default=None)
     p.add_argument("--infos", help="frame infos pkl")
     p.add_argument("--dataset", choices=["waymo", "argo2", "nuscenes",
                                          "lyft", "scannet", "sunrgbd"],
@@ -64,13 +86,61 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "ported)")
     p.add_argument("--gt-sample", type=int, default=0,
                    help="GT copy-paste augmentation (not ported)")
+    p.add_argument("--ctrl-class", choices=["veh", "ped", "cyc"],
+                   default="veh", help="CTRL class variant")
+    p.add_argument("--fixed-ae", action="store_true",
+                   help="freeze the occupancy auto-encoder")
     p.add_argument("--dtype", default=None,
                    choices=["float32", "bfloat16"],
-                   help="compute dtype of the detector (parameters stay "
-                        "float32)")
+                   help="compute dtype (parameters stay float32)")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel size (not ported)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="sharded parameters and moments (not ported)")
+    p.add_argument("--loader-workers", type=int, default=0,
+                   help="sample-building worker processes (not ported); 0: "
+                        "in-process build with a prefetch thread")
+    p.add_argument("--sequence-parallel", action="store_true",
+                   help="sharded point / query axes (not ported)")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-host coordinator (not ported)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p.parse_args(argv)
+
+
+def ococc_train_config(model: str = "ococcnet", tiny: bool = False,
+                       ctrl_class: str = "veh", fixed_ae: bool = False,
+                       dtype: str | None = None) -> OcOccNetConfig:
+    """The config the JAX CLI trains for ``model`` (``ococcnet`` or
+    ``ctrl``), with the port's ``dtype`` on top."""
+    cfg = tiny_config() if tiny else OcOccNetConfig()
+    if model == "ctrl":
+        base = {"veh": ctrl_veh_config, "ped": ctrl_ped_config,
+                "cyc": ctrl_cyc_config}[ctrl_class]()
+        cfg = dataclasses.replace(
+            cfg, variant="ctrl", class_names=base.class_names,
+            cls_pos_thr=base.cls_pos_thr, cls_neg_thr=base.cls_neg_thr,
+            corner_loss_weight=base.corner_loss_weight) if tiny else base
+    if fixed_ae:
+        cfg = dataclasses.replace(cfg, fixed_ae=True)
+    if dtype:
+        cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    return cfg
+
+
+def _refuse_unported(args: argparse.Namespace) -> None:
+    unported = {"--tp": args.tp > 1, "--fsdp": args.fsdp,
+                "--sequence-parallel": args.sequence_parallel,
+                "--loader-workers": args.loader_workers > 0,
+                "the multi-host launch (--coordinator, --num-processes)":
+                    args.coordinator is not None
+                    or (args.num_processes or 1) > 1}
+    for flag, used in unported.items():
+        if used:
+            raise NotImplementedError(f"{flag} is not ported yet")
 
 
 def sst_train_config(tiny: bool = False, dtype: str | None = None
@@ -84,9 +154,24 @@ def sst_train_config(tiny: bool = False, dtype: str | None = None
 
 def main(argv=None,
          hooks: Sequence[Callable[[int, dict], None]] = ()) -> int:
-    """Run the CLI on ``argv``; ``hooks`` go to ``train_detector`` (for a
+    """Run the CLI on ``argv``; ``hooks`` go to the training loop (for a
     caller that drives training from Python). Returns the steps done."""
     args = parse_args(argv)
+    _refuse_unported(args)
+    if args.model in ("ococcnet", "ctrl"):
+        cfg = ococc_train_config(args.model, args.tiny, args.ctrl_class,
+                                 args.fixed_ae, args.dtype)
+        dev = resolve_device(args.device)
+        ds = TrackletDataset(
+            proposals_file=args.proposals,
+            gt_candidates_file=args.gt_candidates, pose_file=args.poses,
+            occ_anno_root=args.occ_root, cfg=cfg,
+            class_names=cfg.class_names)
+        print(f"dataset: {len(ds)} tracklets", flush=True)
+        return train(cfg, ds, args.work_dir, total_steps=args.total_steps,
+                     ckpt_interval=args.ckpt_interval,
+                     log_interval=args.log_interval, resume=not args.no_resume,
+                     seed=args.seed, device=dev, hooks=hooks)
     if args.model != "sst":
         raise NotImplementedError(
             f"training of the {args.model!r} family is not ported yet")

@@ -81,6 +81,13 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """optax's ``global_norm``: the square root of the sum of squares of
+    every element, in float32, on the device."""
+    return torch.stack([t.float().square().sum() for t in tensors]).sum() \
+        .sqrt()
+
+
 def clip_grad_global_norm_(params: Iterable[torch.Tensor],
                            max_norm: float = 10.0) -> torch.Tensor:
     """optax's ``clip_by_global_norm``: where the gradients' global norm is
@@ -88,8 +95,7 @@ def clip_grad_global_norm_(params: Iterable[torch.Tensor],
     below it they are left as they are (no epsilon). Returns the norm before
     clipping. Runs on the device, without a host synchronisation."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.stack([g.float().square().sum() for g in grads]).sum() \
-        .sqrt()
+    norm = global_norm(grads)
     clip = norm >= max_norm
     div = torch.where(clip, norm, torch.ones_like(norm))
     mul = torch.where(clip, torch.full_like(norm, max_norm),

@@ -1,5 +1,6 @@
-"""Checkpoints and metric logs of the training loops (counterpart of the
-JAX package's ``training/trainer.py::CheckpointManager`` and
+"""The OcOccNet training loop, and the checkpoints and metric logs of
+every training loop (counterpart of the JAX package's
+``training/trainer.py``: ``train``, ``CheckpointManager`` and
 ``MetricLogger``)."""
 from __future__ import annotations
 
@@ -7,8 +8,13 @@ import json
 import os
 import re
 import time
+from typing import Callable, Sequence
 
 import torch
+
+from ..data.loader import ThreadPrefetcher, make_loader
+from ..parallel.train import create_train_state, make_train_step
+from ..utils.device import resolve_device
 
 
 class CheckpointManager:
@@ -87,3 +93,54 @@ class MetricLogger:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def train(cfg, dataset, work_dir: str, total_steps: int | None = None,
+          ckpt_interval: int = 1000, log_interval: int = 50,
+          resume: bool = True, seed: int = 0, device="cuda",
+          hooks: Sequence[Callable[[int, dict], None]] = ()) -> int:
+    """Train OcOccNet (``cfg``) on ``dataset`` (a ``TrackletDataset``) on
+    one device (``cuda`` unless the caller asks for the CPU), from weights
+    drawn with ``seed``: ``cfg.batch_size`` tracklets per step,
+    ``total_steps`` steps (default ``cfg.max_epochs`` epochs). Metrics go
+    to ``work_dir/metrics.jsonl`` every ``log_interval`` steps with ``lr``
+    (the step's) and ``tracklets_per_sec``; a checkpoint to
+    ``work_dir/ckpt`` every ``ckpt_interval`` steps and at the end; with
+    ``resume`` the newest checkpoint there is loaded first. A thread builds
+    the next batches while the device runs.
+    Each hook is called as ``hook(step, metrics)`` after every step
+    (``step`` counts the steps done). Returns the number of steps done."""
+    dev = resolve_device(device)
+    batch_size = cfg.batch_size
+    if total_steps is None:
+        total_steps = max(len(dataset) // batch_size, 1) * cfg.max_epochs
+    loader = ThreadPrefetcher(make_loader(dataset, batch_size, seed=seed),
+                              depth=2)
+    try:
+        model, optimizer, schedule = create_train_state(cfg, total_steps,
+                                                        dev, seed)
+        ckpt = CheckpointManager(os.path.join(work_dir, "ckpt"))
+        start = 0
+        if resume:
+            restored = ckpt.restore(model, optimizer)
+            if restored is not None:
+                start = restored
+        step_fn = make_train_step(model, optimizer, schedule, seed=seed + 1)
+        t_last = time.time()
+        with MetricLogger(work_dir, log_interval) as logger:
+            for step in range(start, total_steps):
+                metrics = step_fn(step, next(loader))
+                for hook in hooks:
+                    hook(step + 1, metrics)
+                if (step + 1) % log_interval == 0:
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                    dt = (time.time() - t_last) / log_interval
+                    t_last = time.time()
+                    logger.log(step + 1, {
+                        **metrics, "lr": schedule(step),
+                        "tracklets_per_sec": batch_size / max(dt, 1e-9)})
+                if (step + 1) % ckpt_interval == 0 or step + 1 == total_steps:
+                    ckpt.save(step + 1, model, optimizer)
+    finally:
+        loader.close()
+    return max(start, total_steps)

@@ -10,6 +10,7 @@ import torch
 
 from objectcentricocccompletion_tpu.models import anchor_head as jah
 from objectcentricocccompletion_torch.models import anchor_head as tah
+from tests.test_torch_window_attention import one_torch_thread  # noqa: F401
 
 PC_RANGE = (-9.6, -9.6, -2.0, 9.6, 9.6, 4.0)
 GRID = (24, 16)        # a rectangular BEV grid

@@ -24,6 +24,7 @@ import torch
 
 from objectcentricocccompletion_tpu.ops.pallas_attention import (
     jnp_window_attention)
+from tests.test_torch_window_attention import one_torch_thread  # noqa: F401
 
 LOG2E = 1.4426950408889634
 MASKED_LOGIT2 = np.float32(-1e9) * np.float32(LOG2E)

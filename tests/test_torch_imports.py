@@ -2,6 +2,8 @@
 package: the port keeps its own copy of everything it needs."""
 import pathlib
 import re
+import subprocess
+import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = re.compile(
@@ -22,7 +24,10 @@ def test_port_sources_exist():
             "benchmark.py", "ococcnet_config.py", "boxes.py", "coder.py",
             "roi_pool.py", "masked.py", "packed.py", "layers.py", "sir.py",
             "transformer.py", "occ_decoder.py", "ococcnet.py",
-            "synthetic.py", "tracklet.py"} <= names
+            "synthetic.py", "tracklet.py", "tracklet_dataset.py",
+            "np_geometry.py", "loader.py"} <= names
+    assert (ROOT / "objectcentricocccompletion_torch" / "parallel" /
+            "train.py").exists()
     csrc = ROOT / "objectcentricocccompletion_torch" / "csrc"
     assert {"window_attention.cu", "window_attention_bwd.cu"} <= \
         {p.name for p in csrc.glob("*.cu")}
@@ -35,3 +40,34 @@ def test_port_imports_no_jax():
             line = path.read_text()[:m.start()].count("\n") + 1
             offenders.append(f"{path.relative_to(ROOT)}:{line}")
     assert not offenders, offenders
+
+
+def test_port_modules_import_without_the_jax_package():
+    """Every module of the port, imported in a fresh interpreter that
+    cannot import JAX, flax, optax or the JAX package, leaves none of them
+    in ``sys.modules``."""
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in (ROOT / "objectcentricocccompletion_torch").rglob("*.py")
+        if p.name != "__init__.py")
+    code = (
+        "import importlib, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "BLOCKED = {'jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+        "           'objectcentricocccompletion_tpu'}\n"
+        "for m in list(sys.modules):\n"
+        "    if m.split('.')[0] in BLOCKED:\n"
+        "        del sys.modules[m]\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in BLOCKED))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+    assert "objectcentricocccompletion_torch.parallel.train" in modules

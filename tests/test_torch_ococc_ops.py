@@ -22,6 +22,7 @@ from objectcentricocccompletion_torch.core import coder as tcoder
 from objectcentricocccompletion_torch.ops import masked as tmasked
 from objectcentricocccompletion_torch.ops import packed as tpk
 from objectcentricocccompletion_torch.ops import roi_pool as troi
+from tests.test_torch_window_attention import one_torch_thread  # noqa: F401
 
 GEOM_TOL = 1e-5
 

@@ -40,6 +40,7 @@ from objectcentricocccompletion_torch.models.transformer import (
     TemporalEncoder)
 from objectcentricocccompletion_torch.ops import packed as tpk
 from objectcentricocccompletion_torch.tools import benchmark as bench
+from tests.test_torch_window_attention import one_torch_thread  # noqa: F401
 
 FP32_TOL = 2e-4
 BF16_TOL = 0.1
@@ -418,9 +419,11 @@ def test_unported_options_raise():
             tnet.OcOccNetWithLoss(dataclasses.replace(tiny, **kw), "cpu")
     model = tnet.OcOccNetWithLoss(tiny, "cpu")
     b = synthetic_batch(tiny)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    # the losses and dropout are ported: a training forward with a nonzero
+    # dropout asks for its keys (tests/test_torch_ococc_train.py)
+    with pytest.raises(ValueError, match="DropoutKeys"):
         model(b)
-    with pytest.raises(NotImplementedError, match="dropout"):
+    with pytest.raises(ValueError, match="DropoutKeys"):
         model.net(b, train=True)
     # without dropout a training forward runs (full causal window)
     nodrop = dataclasses.replace(

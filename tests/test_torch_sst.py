@@ -41,6 +41,7 @@ from objectcentricocccompletion_torch.utils.device import resolve_device
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "benchmarks"))
 from bench_detectors import synth_frame as jax_synth_frame  # noqa: E402
+from tests.test_torch_window_attention import one_torch_thread  # noqa: F401
 
 FULL = jdet.SSTDetectorConfig()
 TINY = jdet.tiny_sst_detector_config()

@@ -25,6 +25,7 @@ from objectcentricocccompletion_torch.training import optim as toptim
 from objectcentricocccompletion_torch.training.detector_trainer import (
     train_detector)
 from tests.test_torch_sst import _frame, _random_params, _torch_config
+from tests.test_torch_window_attention import one_torch_thread  # noqa: F401
 
 TINY = jdet.tiny_sst_detector_config()
 

@@ -16,7 +16,7 @@ import torch
 
 from objectcentricocccompletion_tpu.data import frame_dataset as jfd
 from objectcentricocccompletion_tpu.models import sst_detector as jdet
-from objectcentricocccompletion_tpu.parallel.train import make_mesh
+from objectcentricocccompletion_tpu.parallel.train import make_mesh, replicated
 from objectcentricocccompletion_tpu.training import detector_trainer as jdt
 from objectcentricocccompletion_tpu.training.optim import (
     make_optimizer as jax_make_optimizer)
@@ -27,6 +27,7 @@ from objectcentricocccompletion_torch.tools import train as ttrain
 from objectcentricocccompletion_torch.training import detector_trainer as tdt
 from objectcentricocccompletion_torch.training.optim import make_optimizer
 from tests.test_torch_sst import _random_params, _torch_config
+from tests.test_torch_window_attention import one_torch_thread  # noqa: F401
 
 TINY = jdet.tiny_sst_detector_config()
 # frames inside the tiny config's +-9.6 m range
@@ -106,10 +107,13 @@ def test_twin_training(frames):
     params = jax.tree_util.tree_map(np.asarray,
                                     _random_params(shapes["params"], 2))
     tx, _ = jax_make_optimizer(1e-4, TWIN_STEPS)
-    state = jdt.DetectorState(jnp.zeros((), jnp.int32), params,
-                              tx.init(params))
-    jstep = jdt.make_detector_train_step(model, tx,
-                                         make_mesh(jax.devices()[:1]))
+    mesh = make_mesh(jax.devices()[:1])
+    # the state placed as the step returns it (replicated on the mesh), so
+    # that the step compiles once, not again at its second call
+    state = jax.device_put(jdt.DetectorState(
+        jnp.zeros((), jnp.int32), params, jax.jit(tx.init)(params)),
+        replicated(mesh))
+    jstep = jdt.make_detector_train_step(model, tx, mesh)
 
     tmodel = tdet.SSTDetector(_torch_config(TINY), device="cpu")
     tmodel.load_state_dict(convert.flax_to_state_dict(params))

@@ -23,6 +23,20 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 from repro_attn_bwd import (  # noqa: E402
     pallas_window_attention_bwd, pallas_window_attention_bwd_fullstore)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one intra-op thread while the module runs (restored
+    after). The tier-1 suite runs 6 pytest-xdist workers on 8 cores; a
+    worker's pool of 8 spinning threads slows its own tiny CPU ops
+    several-fold and takes cores from the other workers. The port's test
+    modules import this fixture."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # (W, T, C, H): head dims 8 and 16 (the production one), capacities of the
 # tiny config (16), the small level (32) and a ragged one
 SHAPES = [(4, 16, 32, 4), (3, 32, 128, 8), (2, 20, 64, 4)]
