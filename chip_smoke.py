@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SST inference and training paths and its
-OcOccNet serving and training paths on one CUDA card.
+"""Drive the PyTorch port's SST inference, training and evaluation paths
+and its OcOccNet serving, training and evaluation paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -85,15 +85,39 @@ Phases, each of which fails the run (non-zero exit) on any error:
    one tracklet on the card against the same step of the port on the CPU:
    the loss dict, ``grad_norm`` and every parameter after the update, each
    at a stated tolerance.
-9. Print the kernels' JSON line (the bf16 and the float32 tensor-core
-   kernels, each level apart; launches of the bf16 frames and bf16
-   training, and of the float32 frame and float32 training), then as the
-   last line ``{"ok": true, "device": {...}}``.
+9. OcOccNet evaluation through the port's evaluation CLI
+   (``tools/test.py ococcnet``'s ``main``) at full width (float32, the
+   dense eval layout) on phase 8's checkpoint: its 8 tracklets of 40 frames
+   (length bucket 64) and 2 more of 200 frames (bucket 256), plain with
+   ``--occ-baseline``, with ``--tta`` and with ``--tune-steps 10``; then
+   ``ctrl`` on a checkpoint of 2 ``tools/train.py ctrl`` steps, and
+   ``tools/create_submission.py`` on a results ``.bin``. No hand-written
+   kernel lies on this path (launches must read 0). The native metrics
+   binary must print its mAP lines, each ``results.bin`` must hold one
+   object per frame, and every occupancy metric must lie in [0, 1]. Prints
+   per bucket the CLI's wall, the median ms per tracklet of predict,
+   occupancy IoU, tuning and the baseline, and the peak memory.
+10. One float32 ``Evaluator.run`` (TF32 off) of one 40-frame tracklet at
+    full width on the card against the CPU, plain, with TTA and with 3
+    tuning steps: boxes, scores and each frame's occupancy inter / union,
+    each at the bar stated beside its constant.
+11. SST evaluation through ``tools/test.py sst`` with ``--metric kitti``
+    and ``--metric waymo`` on phase 5's float32 checkpoint (its
+    classification bias lifted so that the decode keeps boxes) and frames:
+    each frame must launch 12 forward kernels per level and no backward
+    one. Prints the predict's ms per frame under the CLI.
+12. Print the kernels' JSON line (the bf16 and the float32 tensor-core
+    kernels, each level apart; launches of the bf16 frames and bf16
+    training, and of the float32 frame, float32 training and the SST
+    evaluation), then as the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where ``torch.cuda.is_available()``
 is false or the port's package is missing.
 """
+import collections
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import statistics
@@ -104,13 +128,18 @@ import time
 import torch
 
 from objectcentricocccompletion_torch.data.frame_dataset import (
-    write_synthetic_frames)
+    FrameDataset, write_synthetic_frames)
 from objectcentricocccompletion_torch.data.loader import (
     write_synthetic_dataset)
 from objectcentricocccompletion_torch.data.synthetic import synthetic_batch
 from objectcentricocccompletion_torch.data.tracklet import TrackletBatch
+from objectcentricocccompletion_torch.data.tracklet_dataset import (
+    TrackletDataset)
+from objectcentricocccompletion_torch.evalx import detector_eval, evaluator
 from objectcentricocccompletion_torch.evalx.detector_eval import (
     make_predict_fn)
+from objectcentricocccompletion_torch.evalx.submission import read_submission
+from objectcentricocccompletion_torch.evalx.waymo_bin import read_bin
 from objectcentricocccompletion_torch.models.ococcnet import (
     OcOccNetWithLoss)
 from objectcentricocccompletion_torch.models.sst_detector import SSTDetector
@@ -120,7 +149,12 @@ from objectcentricocccompletion_torch.parallel.train import (
     create_train_state, make_train_step)
 from objectcentricocccompletion_torch.ops import window_attention as wa
 from objectcentricocccompletion_torch.tools import benchmark as bench
+from objectcentricocccompletion_torch.tools import (
+    create_submission as submission_cli)
+from objectcentricocccompletion_torch.tools import test as test_cli
 from objectcentricocccompletion_torch.tools import train as train_cli
+from objectcentricocccompletion_torch.training.trainer import (
+    CheckpointManager)
 from objectcentricocccompletion_torch.utils.device import card_info
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s; tensor-core
@@ -204,6 +238,27 @@ OCC_STEP_LOSS_ATOL = 1e-3
 OCC_STEP_GRAD_NORM_RTOL = 1e-3
 OCC_STEP_GRAD_ATOL = 1e-4
 OCC_STEP_ROUNDING = 1e-6
+# OcOccNet / CTRL evaluation through tools/test.py: beside the training
+# phase's 8 tracklets of 40 frames (bucket 64), 2 of 200 frames (bucket
+# 256); the tuning steps of --tune-steps; CTRL's training steps
+EVAL_LONG_TRACKLETS = 2
+EVAL_LONG_FRAMES = 200
+EVAL_TUNE_STEPS = 10
+CTRL_TRAIN_STEPS = 2
+# one float32 Evaluator.run (TF32 off) on the card against the CPU: the
+# refined boxes come from the forward's O(1) residuals (its 1e-3 bar) times
+# sizes of a few metres, so 1e-3 m; scores are sigmoids of logits within
+# about 1e-4 of each other; the occupancy counts agree exactly except at
+# probabilities within EVAL_NEAR of the threshold, whose side may differ
+# (PERF.md section 6, written before the first run)
+EVAL_BOX_ATOL = 1e-3
+EVAL_SCORE_ATOL = 1e-4
+EVAL_NEAR = 1e-4
+EVAL_CHECK_TUNE_STEPS = 3
+# added to the SST checkpoint's classification bias before its evaluation:
+# the decode keeps boxes scored above 0.1, which a model trained for 4 steps
+# from the prior's bias (sigmoid about 0.01) does not reach
+SST_EVAL_CLS_LIFT = 3.0
 
 
 def log(msg):
@@ -555,15 +610,17 @@ def phase_fp32_model_check(dev):
     return launches
 
 
-def phase_training(dev, dtype):
+def phase_training(dev, dtype, keep=None):
     """Full-width training through the port's CLI, with ``--dtype dtype``
     or, for None, without it (the detector's default float32); returns the
-    launch counts of the run (forward, backward)."""
+    launch counts of the run (forward, backward). With ``keep`` the frames
+    (``keep/frames``) and the work directory (``keep/work``) stay there."""
     steps = TRAIN_STEPS[dtype]
     name = dtype or "float32 (default dtype)"
     per_level = 2 * bench.sst_config().sst.num_blocks   # one per layer
     expect = {32: per_level, 144: per_level}
     with tempfile.TemporaryDirectory() as tmp:
+        tmp = keep or tmp
         data = os.path.join(tmp, "frames")
         t = time.perf_counter()
         infos = write_synthetic_frames(data, num_frames=3, num_points=120000,
@@ -839,13 +896,15 @@ def ococc_cli_run(dev, paths, work, steps, extra=()):
     return times, trained, torch.cuda.max_memory_allocated(dev) / 2 ** 30
 
 
-def phase_ococc_training(dev):
+def phase_ococc_training(dev, keep=None):
     """Full-width OcOccNet training through the CLI in bf16, then
-    ``--fixed-ae``."""
+    ``--fixed-ae``. With ``keep`` the tracklets (``keep/data``) and the
+    first run's work directory (``keep/work``) stay there."""
     cfg = train_cli.ococc_train_config(dtype="bfloat16")
     init = OcOccNetWithLoss(cfg, "cpu",
                             torch.Generator().manual_seed(0)).state_dict()
     with tempfile.TemporaryDirectory() as tmp:
+        tmp = keep or tmp
         paths = write_synthetic_dataset(os.path.join(tmp, "data"),
                                         num_tracklets=OCC_TRAIN_TRACKLETS,
                                         seed=0)
@@ -942,6 +1001,337 @@ def phase_ococc_fp32_step(dev):
                              f"half of lr {lr}: {moved}")
 
 
+class EvalProbe:
+    """While active, times the Evaluator's layers per length bucket (each
+    call ends in a device synchronise) and records, for every occupancy IoU
+    call, the per-frame inter and union and the count of decoded
+    probabilities within ``EVAL_NEAR`` of the threshold."""
+
+    def __init__(self):
+        self.ms = collections.defaultdict(list)     # (layer, L) -> [ms]
+        self.occ = []                               # (inter, union, near)
+
+    def _timed(self, layer, fn, bucket):
+        def call(*args, **kwargs):
+            sync()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            self.ms[(layer, bucket(*args))].append(
+                (time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    def __enter__(self):
+        Ev, occ = evaluator.Evaluator, evaluator.occ_iou_mod
+        self._saved = [(Ev, "_predict", Ev._predict),
+                       (Ev, "_maybe_tune", Ev._maybe_tune),
+                       (occ, "occ_iou_per_frame", occ.occ_iou_per_frame),
+                       (occ, "occ_baseline_tracklet",
+                        occ.occ_baseline_tracklet)]
+        Ev._predict = self._timed("predict", Ev._predict,
+                                  lambda ev, b: b.rois.shape[1])
+        Ev._maybe_tune = self._timed(
+            "tune", Ev._maybe_tune, lambda ev, pred, padded: (
+                padded["rois"].shape[0] if ev.online_tuning_iters else None))
+        occ_iou = occ.occ_iou_per_frame
+
+        def recorded(decode_fn, latent, *args):
+            near = []
+
+            def decode(lat, q):
+                logits = decode_fn(lat, q)
+                near.append(((torch.sigmoid(logits) - args[-1]).abs()
+                             < EVAL_NEAR).sum(-1))
+                return logits
+
+            inter, union = occ_iou(decode, latent, *args)
+            self.occ.append((inter.cpu(), union.cpu(),
+                             torch.cat(near).cpu()))
+            return inter, union
+
+        occ.occ_iou_per_frame = self._timed(
+            "occ_iou", recorded, lambda dec, lat, *a: lat.shape[0])
+        occ.occ_baseline_tracklet = self._timed(
+            "baseline", occ.occ_baseline_tracklet,
+            lambda points, *a: points.shape[0])
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+    def median(self, layer, L):
+        times = self.ms.get((layer, L))
+        return statistics.median(times) if times else float("nan")
+
+
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def tracklet_flags(paths):
+    return ["--proposals", paths["proposals_file"], "--gt-candidates",
+            paths["gt_candidates_file"], "--poses", paths["pose_file"],
+            "--occ-root", paths["occ_anno_root"]]
+
+
+def check_results_bin(what, path, frames):
+    """One Waymo object per (tracklet, frame), ``frames`` in all."""
+    recs = read_bin(path)
+    keys = {(r["id"], r["timestamp"]) for r in recs}
+    if len(recs) != frames or len(keys) != frames:
+        raise AssertionError(f"{what}: {len(recs)} objects ({len(keys)} "
+                             f"distinct) in {path}, expected {frames}")
+
+
+def eval_cli_run(dev, argv, what):
+    """``tools/test.py``'s ``main`` on ``argv`` (its JSON kept off the log)
+    under an ``EvalProbe``; no hand-written kernel may launch. Returns the
+    metrics, the probe, the wall seconds and the peak GiB."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    t = time.perf_counter()
+    with EvalProbe() as probe, contextlib.redirect_stdout(io.StringIO()):
+        metrics = test_cli.main(argv)
+    wall = time.perf_counter() - t
+    launched = dict(wa.LAUNCHES), dict(wa.BWD_LAUNCHES)
+    if any(launched):
+        raise AssertionError(f"{what}: hand-written kernels launched "
+                             f"{launched}; the path has none")
+    if "OBJECT_TYPE_TYPE_VEHICLE_LEVEL_1/mAP" not in metrics:
+        raise AssertionError(f"{what}: no mAP lines from the native binary: "
+                             f"{sorted(metrics)}")
+    return metrics, probe, wall, torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def phase_ococc_eval(dev, train_dir):
+    """``tools/test.py ococcnet`` at full width (``OcOccNetConfig()``, the
+    dense eval layout, float32) on the OcOccNet training phase's checkpoint:
+    its 8 tracklets of 40 frames (bucket 64) and 2 new ones of 200 frames
+    (bucket 256), plain with ``--occ-baseline``, with ``--tta`` and with
+    ``--tune-steps 10``; then ``ctrl`` on a checkpoint of 2 ``ctrl`` CLI
+    steps, and ``tools/create_submission.py`` on a results ``.bin``."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_info()
+    data = {"bucket64": (os.path.join(train_dir, "data"),
+                         OCC_TRAIN_TRACKLETS, 40)}
+    long_root = os.path.join(train_dir, "long")
+    write_synthetic_dataset(long_root, num_tracklets=EVAL_LONG_TRACKLETS,
+                            track_len=EVAL_LONG_FRAMES, seed=1)
+    data["bucket256"] = (long_root, EVAL_LONG_TRACKLETS, EVAL_LONG_FRAMES)
+    ckpt = os.path.join(train_dir, "work", "ckpt")
+    for variant, extra in (("plain", ["--occ-baseline"]), ("tta", ["--tta"]),
+                           ("tune", ["--tune-steps", str(EVAL_TUNE_STEPS)])):
+        for bucket, (root, n, T) in data.items():
+            paths = dataset_paths(root)
+            out = os.path.join(train_dir, "eval", f"{variant}_{bucket}")
+            what = f"tools/test.py ococcnet {variant} {bucket}"
+            metrics, probe, wall, peak = eval_cli_run(
+                dev, ["ococcnet", *tracklet_flags(paths), "--ckpt-dir", ckpt,
+                      "--out-dir", out, "--device", "cuda", *extra], what)
+            check_results_bin(what, metrics["results_bin"], n * T)
+            occ = {k: v for k, v in metrics.items() if k.startswith("occ")}
+            if "occ/overall_iou" not in occ or not all(
+                    0.0 <= v <= 1.0 for v in occ.values()):
+                raise AssertionError(f"{what}: occupancy metrics {occ}")
+            if (variant == "plain") != ("occ_baseline/overall_iou" in occ):
+                raise AssertionError(f"{what}: baseline metrics {occ}")
+            L = int(bucket[6:])
+            layers = {k: probe.median(k, L) for k in (
+                "predict", "occ_iou", "tune", "baseline")
+                if probe.ms.get((k, L))}
+            log(f"{what}: {n} tracklets x {T} frames, wall {wall:.3f} s "
+                f"({n / wall:.3f} tracklets/s through the CLI), per "
+                f"tracklet ms (median) " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in layers.items())
+                + f", peak memory {peak:.3f} GiB; occupancy " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in sorted(occ.items()))
+                + f"; vehicle L1 mAP "
+                f"{metrics['OBJECT_TYPE_TYPE_VEHICLE_LEVEL_1/mAP']:.4f}; "
+                f"card {card}")
+            if variant == "plain" and bucket == "bucket64":
+                sub_bin = metrics["results_bin"]
+
+    # CTRL: 2 CLI training steps at full width, then its evaluation
+    paths = dataset_paths(data["bucket64"][0])
+    work = os.path.join(train_dir, "ctrl")
+    train_cli.main(["ctrl", *tracklet_flags(paths), "--total-steps",
+                    str(CTRL_TRAIN_STEPS), "--work-dir", work, "--device",
+                    "cuda", "--seed", "0"])
+    what = "tools/test.py ctrl"
+    metrics, probe, wall, peak = eval_cli_run(
+        dev, ["ctrl", *tracklet_flags(paths), "--ckpt-dir",
+              os.path.join(work, "ckpt"), "--out-dir",
+              os.path.join(train_dir, "eval", "ctrl"), "--device", "cuda"],
+        what)
+    check_results_bin(what, metrics["results_bin"],
+                      OCC_TRAIN_TRACKLETS * 40)
+    if any(k.startswith("occ") for k in metrics):
+        raise AssertionError(f"{what}: occupancy metrics without a decoder")
+    log(f"{what}: {OCC_TRAIN_TRACKLETS} tracklets x 40 frames, wall "
+        f"{wall:.3f} s, predict {probe.median('predict', 64):.3f} ms per "
+        f"tracklet, peak {peak:.3f} GiB, vehicle L1 mAP "
+        f"{metrics['OBJECT_TYPE_TYPE_VEHICLE_LEVEL_1/mAP']:.4f}")
+
+    sub = os.path.join(train_dir, "submission")
+    with contextlib.redirect_stdout(io.StringIO()):
+        shards = submission_cli.main([sub_bin, "--out-dir", sub,
+                                      "--method-name", "chip_smoke"])
+    payload = b"".join(read_submission(p)["objects_payload"]
+                       for p in shards[:-1])
+    if payload != open(sub_bin, "rb").read() or not os.path.exists(
+            shards[-1]):
+        raise AssertionError(f"create_submission: {shards}")
+    log(f"tools/create_submission.py: {len(shards) - 1} shards and "
+        f"{os.path.basename(shards[-1])} hold the {len(read_bin(sub_bin))} "
+        f"objects of {os.path.relpath(sub_bin, train_dir)}")
+
+
+def dataset_paths(root):
+    return dict(proposals_file=os.path.join(root, "proposals.pkl"),
+                gt_candidates_file=os.path.join(root, "gt_candidates.pkl"),
+                pose_file=os.path.join(root, "poses.pkl"),
+                occ_anno_root=os.path.join(root, "occ_gt"))
+
+
+def phase_eval_fp32_check(dev):
+    """One float32 ``Evaluator.run`` of one 40-frame tracklet at full width
+    (TF32 off), on the card and on the CPU from the same weights: plain,
+    with TTA and with ``EVAL_CHECK_TUNE_STEPS`` tuning steps. Boxes and
+    scores of every frame, and each frame's occupancy inter and union up
+    to the probabilities near the threshold, each at its stated bar."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(train_cli.ococc_train_config(),
+                              packed_point_budget=None)
+    weights = OcOccNetWithLoss(cfg, "cpu",
+                               torch.Generator().manual_seed(0)).state_dict()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_synthetic_dataset(os.path.join(tmp, "data"),
+                                        num_tracklets=1, track_len=40, seed=2)
+        ds = TrackletDataset(cfg=cfg, training=False, min_tracklet_length=1,
+                             **paths)
+        for name, opts in (("plain", {}), ("tta", {"tta": True}),
+                           ("tune", {"online_tuning_iters":
+                                     EVAL_CHECK_TUNE_STEPS})):
+            res = []
+            for where in (dev, torch.device("cpu")):
+                model = OcOccNetWithLoss(cfg, where)
+                model.load_state_dict(weights)
+                t = time.perf_counter()
+                with EvalProbe() as probe:
+                    m = evaluator.Evaluator(model, ds, cfg, device=where,
+                                            **opts).run(
+                        os.path.join(tmp, f"{name}_{where.type}"),
+                        eval_waymo=False)
+                res.append((m, read_bin(m["results_bin"]), probe.occ,
+                            time.perf_counter() - t))
+            (m_card, card, occ_card, t_card), (m_cpu, cpu, occ_cpu, t_cpu) = \
+                res
+            box_err = max(abs(a["box"][k] - b["box"][k])
+                          for a, b in zip(card, cpu) for k in range(1, 8))
+            score_err = max(abs(a["score"] - b["score"])
+                            for a, b in zip(card, cpu))
+            (ic, uc, nc), (ir, ur, nr) = occ_card[0], occ_cpu[0]
+            near = nc + nr
+            count_err = torch.maximum((ic - ir).abs(), (uc - ur).abs())
+            log(f"eval fp32 {name}, card vs CPU (1 tracklet x 40 frames): "
+                f"boxes max abs err {box_err:.3e} m (tolerance "
+                f"{EVAL_BOX_ATOL}), scores {score_err:.3e} (tolerance "
+                f"{EVAL_SCORE_ATOL}), inter / union counts differ by at "
+                f"most {int(count_err.max())} with {int(near.sum())} "
+                f"probabilities within {EVAL_NEAR} of the threshold (bar: "
+                f"each frame's near count); occ/overall_iou "
+                f"{m_card['occ/overall_iou']:.6f} vs "
+                f"{m_cpu['occ/overall_iou']:.6f}; {t_card:.1f} s on the "
+                f"card, {t_cpu:.1f} s on the CPU")
+            if not (len(card) == len(cpu) == 40 and box_err <= EVAL_BOX_ATOL
+                    and score_err <= EVAL_SCORE_ATOL
+                    and bool((count_err <= near).all())):
+                raise AssertionError(f"eval fp32 {name}: card vs CPU beyond "
+                                     f"the bars")
+
+
+def phase_sst_eval(dev, train_dir):
+    """``tools/test.py sst --metric kitti`` and ``--metric waymo`` on the
+    float32 SST training phase's checkpoint and frames, its classification
+    bias lifted by ``SST_EVAL_CLS_LIFT`` so that the decode keeps boxes of
+    the barely trained model. Counts the attention kernels' launches (12
+    forward per level per frame, no backward) and times the predict per
+    frame. Returns the forward launches."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ckpt = CheckpointManager(os.path.join(train_dir, "work", "ckpt"))
+    state = torch.load(ckpt.path(ckpt.steps()[-1]), map_location="cpu",
+                       weights_only=True)
+    state["model"]["head.cls.bias"] += SST_EVAL_CLS_LIFT
+    lifted = os.path.join(train_dir, "ckpt_eval")
+    os.makedirs(lifted, exist_ok=True)
+    torch.save(state, os.path.join(lifted, "step_1.pt"))
+    frames = os.path.join(train_dir, "frames")
+    n = len(FrameDataset(os.path.join(frames, "infos.pkl"), frames))
+    per_level = 2 * bench.sst_config().sst.num_blocks
+    make = detector_eval.make_predict_fn
+    total = collections.Counter()
+    try:
+        for metric in ("kitti", "waymo"):
+            times = []
+
+            def timed_make(model, family):
+                fn = make(model, family)
+
+                def call(points, mask):
+                    sync()
+                    t = time.perf_counter()
+                    out = fn(points, mask)
+                    sync()
+                    times.append((time.perf_counter() - t) * 1e3)
+                    return out
+                return call
+
+            detector_eval.make_predict_fn = timed_make
+            wa.LAUNCHES.clear()
+            wa.BWD_LAUNCHES.clear()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                metrics = test_cli.main([
+                    "sst", "--infos", os.path.join(frames, "infos.pkl"),
+                    "--data-root", frames, "--ckpt-dir", lifted, "--metric",
+                    metric, "--out-dir", os.path.join(train_dir, metric),
+                    "--device", "cuda"])
+            wall = time.perf_counter() - t
+            fwd, bwd = dict(wa.LAUNCHES), dict(wa.BWD_LAUNCHES)
+            expect = {32: per_level * n, 144: per_level * n}
+            if fwd != expect or bwd:
+                raise AssertionError(f"sst eval {metric}: launches forward "
+                                     f"{fwd} backward {bwd}, expected "
+                                     f"{expect} and none")
+            total.update(fwd)
+            if metric == "kitti":
+                shown = {k: v for k, v in metrics.items() if "_3d_" in k}
+                if len(shown) != 3:
+                    raise AssertionError(f"sst kitti metrics {metrics}")
+            else:
+                shown = {k: v for k, v in metrics.items()
+                         if k.startswith("OBJECT_TYPE_TYPE_VEHICLE")}
+                preds = read_bin(os.path.join(train_dir, metric, "pred.bin"))
+                if not shown or not preds:
+                    raise AssertionError(f"sst waymo: {len(preds)} "
+                                         f"predictions, metrics {metrics}")
+            log(f"tools/test.py sst --metric {metric}: {n} frames, wall "
+                f"{wall:.3f} s, predict {statistics.median(times):.3f} "
+                f"ms/frame (median; {[round(x, 3) for x in times]}), "
+                f"launches forward {fwd} backward 0; {shown}; card "
+                f"{card_info()}")
+    finally:
+        detector_eval.make_predict_fn = make
+    return dict(total)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -958,43 +1348,57 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
-    t = time.perf_counter()
-    rows = phase_kernel_vs_plain()
-    log(f"phase kernel-vs-plain: {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    launches, _ = phase_inference(dev)
-    log(f"phase inference: {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    fp32_fwd = phase_fp32_model_check(dev)
-    log(f"phase fp32 check: {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    bwd_rows = phase_bwd_kernel_vs_plain()
-    log(f"phase backward kernel-vs-plain: {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    phase_model_occupancy()
-    log(f"phase model occupancy: {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    train_fwd, train_bwd = phase_training(dev, "bfloat16")
-    log(f"phase training: {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    fp32_train_fwd, fp32_train_bwd = phase_training(dev, None)
-    log(f"phase fp32 training (default dtype): "
-        f"{time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    phase_fp32_grad_check(dev)
-    log(f"phase fp32 gradient check: {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    phase_ococcnet(dev)
-    log(f"phase ococcnet: {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    phase_ococc_training(dev)
-    log(f"phase ococcnet training: {time.perf_counter() - t:.1f} s")
-    t = time.perf_counter()
-    phase_ococc_fp32_step(dev)
-    log(f"phase ococcnet fp32 step: {time.perf_counter() - t:.1f} s")
+    with tempfile.TemporaryDirectory() as keep:
+        sst_dir = os.path.join(keep, "sst")
+        occ_dir = os.path.join(keep, "ococcnet")
+        t = time.perf_counter()
+        rows = phase_kernel_vs_plain()
+        log(f"phase kernel-vs-plain: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        launches, _ = phase_inference(dev)
+        log(f"phase inference: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        fp32_fwd = phase_fp32_model_check(dev)
+        log(f"phase fp32 check: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        bwd_rows = phase_bwd_kernel_vs_plain()
+        log(f"phase backward kernel-vs-plain: "
+            f"{time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_model_occupancy()
+        log(f"phase model occupancy: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        train_fwd, train_bwd = phase_training(dev, "bfloat16")
+        log(f"phase training: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        fp32_train_fwd, fp32_train_bwd = phase_training(dev, None, sst_dir)
+        log(f"phase fp32 training (default dtype): "
+            f"{time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_fp32_grad_check(dev)
+        log(f"phase fp32 gradient check: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_ococcnet(dev)
+        log(f"phase ococcnet: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_ococc_training(dev, occ_dir)
+        log(f"phase ococcnet training: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_ococc_fp32_step(dev)
+        log(f"phase ococcnet fp32 step: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_ococc_eval(dev, occ_dir)
+        log(f"phase ococcnet evaluation: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_eval_fp32_check(dev)
+        log(f"phase evaluation fp32 check: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        eval_fwd = phase_sst_eval(dev, sst_dir)
+        log(f"phase sst evaluation: {time.perf_counter() - t:.1f} s")
 
     # launches on the model's paths: bf16 inference and training run the
-    # bf16 kernels, the float32 frame and float32 training the 3xTF32 ones
+    # bf16 kernels, the float32 frame, float32 training and the SST
+    # evaluation the 3xTF32 ones
     src = "objectcentricocccompletion_torch/csrc/"
     fwd_tpu = "objectcentricocccompletion_tpu/ops/pallas_attention.py:25"
     bwd_tpu = ("benchmarks/repro_attn_bwd.py:124 (_attn_bwd_kernel) and :40 "
@@ -1007,7 +1411,8 @@ def main():
              train_bwd),
             (torch.float32, "fp32", "window_attention.cu",
              "window_attention_bwd.cu",
-             {T: fp32_fwd[T] + fp32_train_fwd[T] for _, T in ATTN_SHAPES},
+             {T: fp32_fwd[T] + fp32_train_fwd[T] + eval_fwd[T]
+              for _, T in ATTN_SHAPES},
              fp32_train_bwd)):
         for W, T in ATTN_SHAPES:
             kernels.append(dict(

@@ -150,3 +150,53 @@ def aligned_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor
     vol1 = boxes1[..., 3] * boxes1[..., 4] * boxes1[..., 5]
     vol2 = boxes2[..., 3] * boxes2[..., 4] * boxes2[..., 5]
     return inter / (vol1 + vol2 - inter).clamp(min=1e-8)
+
+
+def pairwise_iou_bev(boxes1: torch.Tensor, boxes2: torch.Tensor
+                     ) -> torch.Tensor:
+    """Full ``[N, M]`` rotated BEV IoU matrix."""
+    n, m = boxes1.shape[0], boxes2.shape[0]
+    inter = rotated_bev_overlap(boxes1[:, None].expand(n, m, 7),
+                                boxes2[None].expand(n, m, 7))
+    a1 = (boxes1[:, 3] * boxes1[:, 4])[:, None]
+    a2 = (boxes2[:, 3] * boxes2[:, 4])[None, :]
+    return inter / (a1 + a2 - inter).clamp(min=1e-8)
+
+
+def pairwise_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor
+                    ) -> torch.Tensor:
+    """Full ``[N, M]`` rotated 3D IoU matrix."""
+    n, m = boxes1.shape[0], boxes2.shape[0]
+    return aligned_iou_3d(boxes1[:, None].expand(n, m, 7),
+                          boxes2[None].expand(n, m, 7))
+
+
+def nms_bev(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh: float,
+            max_out: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Greedy rotated-BEV NMS with a fixed output size: ``(keep [max_out],
+    valid [max_out])``, the kept boxes' input indices in descending score
+    order, -1 past the last kept one. One IoU matrix, then a masked greedy
+    sweep on the device (no read-back to the host)."""
+    n = boxes.shape[0]
+    if n == 0:
+        return (torch.full((max_out,), -1, dtype=torch.int64,
+                           device=boxes.device),
+                torch.zeros(max_out, dtype=torch.bool, device=boxes.device))
+    order = torch.argsort(-scores, stable=True)
+    suppress = pairwise_iou_bev(boxes[order], boxes[order]) > iou_thresh
+    later = (torch.arange(n, device=boxes.device)[None, :]
+             > torch.arange(n, device=boxes.device)[:, None])
+    suppress &= later
+    alive = torch.ones(n, dtype=torch.bool, device=boxes.device)
+    for i in range(n):
+        # a box still alive kills every lower-scored box it overlaps
+        alive &= ~(suppress[i] & alive[i])
+    rank = torch.cumsum(alive, 0) - 1
+    slot = torch.where(alive, rank, max_out)
+    out = torch.full((max_out + 1,), -1, dtype=torch.int64,
+                     device=boxes.device)
+    out.scatter_(0, slot.clamp(max=max_out),
+                 torch.arange(n, device=boxes.device))
+    out = out[:max_out]
+    valid = out >= 0
+    return torch.where(valid, order[out.clamp(0, n - 1)], -1), valid

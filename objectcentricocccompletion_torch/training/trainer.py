@@ -48,16 +48,19 @@ class CheckpointManager:
         return path
 
     def restore(self, model: torch.nn.Module,
-                optimizer: torch.optim.Optimizer) -> int | None:
-        """Load the newest checkpoint into ``model`` and ``optimizer``;
-        returns its step, or None where there is none."""
+                optimizer: torch.optim.Optimizer | None = None
+                ) -> int | None:
+        """Load the newest checkpoint into ``model`` and, where one is
+        given, ``optimizer`` (evaluation passes none); returns its step, or
+        None where there is none."""
         steps = self.steps()
         if not steps:
             return None
         state = torch.load(self.path(steps[-1]), map_location="cpu",
                            weights_only=True)
         model.load_state_dict(state["model"])
-        optimizer.load_state_dict(state["optimizer"])
+        if optimizer is not None:
+            optimizer.load_state_dict(state["optimizer"])
         return int(state["step"])
 
 

@@ -20,7 +20,8 @@ stored max + log2(sum).
 
 A case with large logits shows why each product takes three TF32 products:
 against float64, 3xTF32 stays within twice the error of plain float32,
-while a single TF32 product misses the float32 bar."""
+while a single TF32 product misses the float32 bar
+(``test_torch_attention_tf32_large.py``)."""
 import functools
 
 import jax
@@ -199,41 +200,3 @@ def test_p_and_v_take_the_same_key_permutation():
             - ref).abs().max() > 0.1
 
 
-def _large_logits(W, T, C, H, seed, target=60.0):
-    """N(0, 1) inputs with q scaled so that the largest |logit| of a valid
-    key is about ``target``."""
-    q, k, v, g, mask = _inputs(W, T, C, seed)
-    hd = C // H
-    logits = torch.einsum("wthd,wshd->whts", q.view(W, T, H, hd),
-                          k.view(W, T, H, hd)) / hd ** 0.5
-    top = logits.masked_fill(~mask[:, None, None, :], 0).abs().max()
-    return q * (target / top), k, v, g, mask
-
-
-@pytest.mark.parametrize("direction", ["forward", "backward"])
-def test_three_products_hold_float32_accuracy_at_large_logits(direction):
-    """Against float64: 3xTF32 within twice plain float32's error; one TF32
-    product (hi . hi, the rounding of a single tensor-core pass) fails the
-    float32 bar by orders of magnitude."""
-    W, T, C, H = 48, 144, 128, 8
-    q, k, v, g, mask = _large_logits(W, T, C, H, seed=11)
-    x64 = [t.double() for t in (q, k, v, g)]
-    if direction == "forward":
-        bar = FWD_ATOL
-        ref = [wa.window_attention_plain(*x64[:3], mask, H)]
-        fp32 = [wa.window_attention_plain(q, k, v, mask, H)]
-        tf3 = [emulate_fwd(q, k, v, mask, H)]
-        tf1 = [emulate_fwd(q, k, v, mask, H, terms=1)]
-    else:
-        bar = BWD_ATOL
-        ref = wa.window_attention_bwd_plain(*x64[:3], mask, x64[3], H)
-        fp32 = wa.window_attention_bwd_plain(q, k, v, mask, g, H)
-        tf3 = emulate_bwd(q, k, v, mask, g, H)
-        tf1 = emulate_bwd(q, k, v, mask, g, H, terms=1)
-
-    def err(outs):
-        return max((a.double() - r).abs().max().item()
-                   for a, r in zip(outs, ref))
-    e32, e3, e1 = err(fp32), err(tf3), err(tf1)
-    assert e3 <= 2 * e32, (e3, e32)
-    assert e1 > bar and e1 > 100 * e32, (e1, e32)

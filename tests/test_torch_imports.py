@@ -25,7 +25,10 @@ def test_port_sources_exist():
             "roi_pool.py", "masked.py", "packed.py", "layers.py", "sir.py",
             "transformer.py", "occ_decoder.py", "ococcnet.py",
             "synthetic.py", "tracklet.py", "tracklet_dataset.py",
-            "np_geometry.py", "loader.py"} <= names
+            "np_geometry.py", "loader.py", "evaluator.py", "occ_iou.py",
+            "tta.py", "online_tuning.py", "waymo_bin.py", "waymo_metrics.py",
+            "submission.py", "kitti_eval.py", "detector_eval.py", "test.py",
+            "create_submission.py"} <= names
     assert (ROOT / "objectcentricocccompletion_torch" / "parallel" /
             "train.py").exists()
     csrc = ROOT / "objectcentricocccompletion_torch" / "csrc"
@@ -71,3 +74,5 @@ def test_port_modules_import_without_the_jax_package():
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[]"
     assert "objectcentricocccompletion_torch.parallel.train" in modules
+    assert "objectcentricocccompletion_torch.evalx.evaluator" in modules
+    assert "objectcentricocccompletion_torch.tools.test" in modules

@@ -5,7 +5,9 @@ gives the JAX package's arrays) and go through the JAX function and its
 counterpart in ``objectcentricocccompletion_torch``; weights cross over
 through ``convert.py``. One JAX parameter tree per variant (shapes from
 ``jax.eval_shape``, values from numpy) and one jitted JAX forward per
-config are shared by the whole file.
+config are shared by the whole file. predict + decode per layout, the bf16
+flow and the full-tree converter round trip are in
+``test_torch_ococcnet_serve.py`` and ``test_torch_ococcnet_full.py``.
 
 Bars: float32 forward within 2e-4 absolute (the SST bar); bfloat16 within
 0.1 on O(1) outputs (bf16 keeps about 3 significant digits and rounds at
@@ -350,8 +352,9 @@ def test_occ_decoder_matches():
                             method=JOccDecoder.classify)))
 
 
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_predict_and_decode_match(name):
+def check_predict_and_decode(name):
+    """predict + decode of config ``name`` against the JAX package
+    (``test_torch_ococcnet_serve.py``, ``test_torch_ococcnet_full.py``)."""
     cfg = CONFIGS[name]
     params = _params("ctrl" if cfg.variant == "ctrl" else "ococc")
     b = _batch(cfg)
@@ -362,54 +365,6 @@ def test_predict_and_decode_match(name):
     assert not nonempty[0, 2] and nonempty.sum() > 1   # the emptied frame
     if cfg.variant == "ococc":
         assert got[1].shape == (2, 8, 32)
-
-
-def test_bf16_dtype_flow_matches():
-    """bfloat16 compute, packed layout: the same casts as the JAX package
-    (float32 parameters, norm statistics, softmax and head outputs)."""
-    cfg = dataclasses.replace(CONFIGS["packed"], compute_dtype="bfloat16")
-    params = _params("ococc")
-    b = _batch(cfg)
-    ref = _jax_forward(cfg)(params, _jbatch(b))
-    got = _port_forward(_port_model(cfg, params), b)
-    assert got[0]["ae_latent"].dtype == torch.bfloat16
-    assert np.asarray(ref[0]["ae_latent"]).dtype == jnp.bfloat16
-    for k in ("cls_logit", "bbox_pred", "shape_latent", "boxes"):
-        assert got[0][k].dtype == torch.float32, k
-    # the O(1) outputs (the boxes are their float32 decode, in metres)
-    _compare(got, ref, BF16_TOL, ("scores", "cls_logit", "bbox_pred",
-                                  "shape_latent", "ae_latent", "nonempty"))
-
-
-def test_convert_round_trip_full_config():
-    """The whole ``OcOccNetConfig()`` tree (shapes from ``jax.eval_shape``
-    on a short tracklet, nothing runs; traced in the dense layout, whose
-    tree is the packed one's): every flax leaf lands in the port's module
-    shape for shape and comes back unchanged."""
-    cfg = jcfgm.OcOccNetConfig()
-    B, L, P, K = 1, 4, 16, 8
-    f32 = jnp.float32
-    S = jax.ShapeDtypeStruct
-    batch = jnet.TrackletBatch(
-        S((B, L, P, cfg.points_dim), f32), S((B, L, P), jnp.bool_),
-        S((B, L, 7), f32), S((B, L), f32), S((B, L), jnp.int32),
-        S((B, L, 7), f32), S((B, L), jnp.bool_), S((B, K, 3), f32),
-        S((B, K), jnp.int32), S((B, K), jnp.bool_), S((B,), f32))
-    shapes = _param_shapes(dataclasses.replace(
-        cfg, packed_point_budget=None, roi_point_budget=None), batch)
-    rng = np.random.default_rng(0)
-    params = jax.tree_util.tree_map(
-        lambda s: rng.random(s.shape, np.float32), shapes)
-    sd = convert.flax_to_state_dict(params)
-    tmodel = tnet.OcOccNetWithLoss(_torch_config(cfg), device="cpu")
-    tmodel.load_state_dict(sd, strict=True)
-    back = convert.state_dict_to_flax(tmodel.state_dict())
-    flat_a = jax.tree_util.tree_flatten_with_path(params)[0]
-    flat_b = dict(jax.tree_util.tree_flatten_with_path(back)[0])
-    assert len(flat_a) == len(flat_b)
-    for path, leaf in flat_a:
-        assert flat_b[path].shape == leaf.shape, path
-        assert np.array_equal(flat_b[path], leaf), path
 
 
 def test_unported_options_raise():

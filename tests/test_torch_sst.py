@@ -6,7 +6,10 @@ through ``convert.py``. Index outputs (voxel coords, point-to-voxel maps,
 window slots and ranks) must be equal exactly; every float tolerance is
 stated where it is used. One JAX parameter tree (shapes from
 ``jax.eval_shape``, values from numpy) and one jitted JAX apply are shared
-by the whole file.
+by the whole file. The window partition, the non-square detector, the
+anchor-head decode and the converter's round trip are in
+``test_torch_sst_partition*.py`` and ``test_torch_sst_heads.py`` (files of
+at most four tests: xdist's ``loadfile`` starts large files first).
 """
 import dataclasses
 import os
@@ -195,9 +198,9 @@ PARTITION_CASES = [(3200, 144, 32, 3200, 800), (40, 144, 32, 25, 6),
                    (300, 20, 8, 120, 30)]
 
 
-@pytest.mark.parametrize("case", PARTITION_CASES)
-@pytest.mark.parametrize("shifted", [False, True])
-def test_partition_and_split_indices_exact(case, shifted):
+def check_partition_and_split(case, shifted):
+    """Window partition, occupancy split and flat <-> window moves of a
+    full-width frame, index for index (``test_torch_sst_partition*.py``)."""
     mw, cap, small, max_small, max_large = case
     s = FULL.sst
     points, mask = _frame(FULL, 150000, seed=0)
@@ -361,52 +364,8 @@ def test_generate_anchors_non_square(acfg):
     np.testing.assert_array_equal(got, ref)
 
 
-@pytest.mark.parametrize("ncls", [1, 3])
-def test_anchor_head_decode_on_shared_maps(ncls):
-    rng = np.random.RandomState(ncls)
-    acfg = (jah.AnchorConfig() if ncls == 1
-            else jah.waymo_3class_anchor_config())
-    anchors = np.asarray(jah.generate_anchors(
-        (20, 16), (-16, -12.8, -2, 16, 12.8, 4), acfg))
-    A = anchors.shape[0]
-    # a mostly empty map: most scores tie at one value, so the order of
-    # ties decides the top-K; heading deltas beyond +-pi/2 exercise the mod
-    cls = np.full((A, ncls), -4.59, np.float32)
-    hot = rng.choice(A, 40, replace=False)
-    cls[hot] = rng.randn(40, ncls) * 2
-    reg = (rng.randn(A, 7) * 0.3).astype(np.float32)
-    reg[:, 6] = rng.uniform(-4, 4, A)
-    dirp = rng.randn(A, 2).astype(np.float32)
-    ref = jah.anchor_head_decode(jnp.asarray(cls), jnp.asarray(reg),
-                                 jnp.asarray(dirp), jnp.asarray(anchors),
-                                 acfg, max_out=100)
-    tcfg = tah.AnchorConfig(**dataclasses.asdict(acfg))
-    got = tah.anchor_head_decode(_t(cls), _t(reg), _t(dirp), _t(anchors),
-                                 tcfg, max_out=100)
-    boxes, scores, labels, valid = (x.numpy() for x in got)
-    assert boxes.shape == (100, 7)
-    np.testing.assert_array_equal(scores, np.asarray(ref[1]))
-    np.testing.assert_array_equal(labels, np.asarray(ref[2]))
-    np.testing.assert_array_equal(valid, np.asarray(ref[3]))
-    # float32 decode math: 1e-5
-    np.testing.assert_allclose(boxes, np.asarray(ref[0]), atol=1e-5,
-                               rtol=1e-5)
-
-
 def test_tiny_detector_forward_matches(tiny):
     _check_forward(tiny, (24, 24))
-
-
-def test_non_square_two_level_3class_detector_forward_matches():
-    """A 24 x 16 BEV grid (an x/y swap anywhere would show), the two-level
-    window split inside the model (small capacity 4 of 16), and the 3-class
-    head (6 anchors per cell: the channel-last reshape)."""
-    jcfg = dataclasses.replace(
-        TINY, sst=dataclasses.replace(
-            TINY.sst, pc_range=(-9.6, -6.4, -2, 9.6, 6.4, 4),
-            small_capacity=4, max_small_windows=40, max_large_windows=12),
-        anchors=jah.waymo_3class_anchor_config(), num_classes=3)
-    _check_forward(_detector_pair(jcfg, 300, seed=4), (24, 16))
 
 
 def test_predict_fn_shapes_and_decode(tiny):
@@ -457,29 +416,6 @@ def test_seeded_init_is_reproducible():
                                   b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
     assert torch.all(a.head.cls.bias == -4.59)
-
-
-@pytest.mark.parametrize("cfg", [TINY, FULL], ids=["tiny", "default"])
-def test_convert_round_trip(cfg):
-    model = jdet.SSTDetector(cfg)
-    s = cfg.sst
-    shapes = jax.eval_shape(
-        model.init, jax.random.PRNGKey(0),
-        jax.ShapeDtypeStruct((s.max_points, 5), jnp.float32),
-        jax.ShapeDtypeStruct((s.max_points,), jnp.bool_))["params"]
-    params = jax.tree_util.tree_map(np.asarray, _random_params(shapes, 1))
-    sd = convert.flax_to_state_dict(params)
-    # the port's module takes every converted tensor, shape for shape
-    tcfg = tdet.tiny_sst_detector_config() if cfg is TINY else \
-        tdet.SSTDetectorConfig()
-    tmodel = tdet.SSTDetector(tcfg, device="cpu")
-    tmodel.load_state_dict(sd, strict=True)
-    back = convert.state_dict_to_flax(tmodel.state_dict())
-    flat_a = jax.tree_util.tree_flatten_with_path(params)[0]
-    flat_b = dict(jax.tree_util.tree_flatten_with_path(back)[0])
-    assert len(flat_a) == len(flat_b)
-    for path, leaf in flat_a:
-        np.testing.assert_array_equal(flat_b[path], leaf)
 
 
 def test_cuda_entry_points_raise_without_a_card():

@@ -3,10 +3,9 @@ the JAX package's ``jnp_window_attention`` and the Pallas kernel in
 interpret mode, on the CPU; its backward against ``jax.vjp`` of the einsum
 form, the chunked backward and the repro backward kernels (interpret
 mode). ``chip_smoke.py`` holds the CUDA kernels against the same plain
-versions on the card."""
-import os
-import sys
-
+versions on the card. The costly comparisons with JAX are in
+``test_torch_attention_fwd_interpret.py``, ``_bwd_vjp.py``,
+``_bwd_chunked.py`` and ``_bwd_interpret.py``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,14 +13,8 @@ import pytest
 import torch
 
 from objectcentricocccompletion_tpu.ops.pallas_attention import (
-    jnp_window_attention, pallas_window_attention,
-    xla_chunked_window_attention_bwd)
+    jnp_window_attention, xla_chunked_window_attention_bwd)
 from objectcentricocccompletion_torch.ops import window_attention as wa
-
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "benchmarks"))
-from repro_attn_bwd import (  # noqa: E402
-    pallas_window_attention_bwd, pallas_window_attention_bwd_fullstore)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -50,25 +43,6 @@ def _inputs(W, T, C, seed, fully_masked=(0,)):
     for w in fully_masked:           # padded window slots are all masked
         mask[w] = False
     return q, k, v, mask
-
-
-@pytest.mark.parametrize("W,T,C,H", SHAPES)
-def test_plain_matches_jnp_and_pallas_interpret(W, T, C, H):
-    q, k, v, mask = _inputs(W, T, C, seed=W * T)
-    ref = np.asarray(jnp_window_attention(*map(jnp.asarray, (q, k, v, mask)),
-                                          H))
-    pal = np.asarray(pallas_window_attention(
-        *map(jnp.asarray, (q, k, v, mask)), H, interpret=True))
-    got = wa.window_attention_plain(*map(torch.from_numpy, (q, k, v, mask)),
-                                    H)
-    assert got.dtype == torch.float32 and got.shape == (W, T, C)
-    # the forward bar of tests/test_pallas_attention.py: 2e-5
-    np.testing.assert_allclose(got.numpy(), ref, atol=2e-5, rtol=2e-5)
-    # the Pallas kernel adds -1e9 where the reference replaces with it; the
-    # two agree on every window with a valid key
-    live = mask.any(1)
-    np.testing.assert_allclose(got.numpy()[live], pal[live], atol=2e-5,
-                               rtol=2e-5)
 
 
 def test_fully_masked_window_is_the_mean_of_v():
@@ -167,22 +141,6 @@ def _function_grads(q, k, v, mask, g, H):
     return [x.grad.numpy() for x in t]
 
 
-@pytest.mark.parametrize("W,T,C,H", SHAPES)
-def test_bwd_plain_and_function_match_the_einsum_vjp(W, T, C, H):
-    q, k, v, mask, g = _bwd_inputs(W, T, C, seed=7 * W + T)
-    ref = _einsum_vjp(q, k, v, mask, g, H)
-    plain = wa.window_attention_bwd_plain(
-        *map(torch.from_numpy, (q, k, v, mask, g)), H)
-    func = _function_grads(q, k, v, mask, g, H)
-    for name, r, p, f in zip("qkv", ref, plain, func):
-        assert p.dtype == torch.float32 and p.shape == (W, T, C)
-        # float32 sums in another order: atol 1e-5
-        np.testing.assert_allclose(p.numpy(), r, atol=1e-5, rtol=0,
-                                   err_msg=f"plain d{name}")
-        np.testing.assert_allclose(f, r, atol=1e-5, rtol=0,
-                                   err_msg=f"Function d{name}")
-
-
 def test_bwd_fully_masked_windows_follow_the_where_form():
     """A window whose keys are all masked: dq = dk = 0 and dv is the mean
     of g (the einsum VJP). The JAX chunked backward has no ``where`` on its
@@ -201,53 +159,6 @@ def test_bwd_fully_masked_windows_follow_the_where_form():
             dv[w], np.broadcast_to(g[w].mean(0), dv[w].shape), atol=1e-6)
         np.testing.assert_allclose(dv[w], chunked[2][w], atol=1e-6)
         assert np.abs(chunked[0][w]).max() > 1e-3
-
-
-@pytest.mark.parametrize("chunk", [None, 1, 3])
-def test_bwd_plain_matches_the_chunked_backward(chunk):
-    """``xla_chunked_window_attention_bwd`` on the windows with a valid key
-    (it differs from the einsum VJP in fully masked ones), one chunk and
-    chunks smaller than W on both sides."""
-    W, T, C, H = 11, 24, 32, 4
-    q, k, v, mask, g = _bwd_inputs(W, T, C, seed=5, fully_masked=(2,))
-    ref = [np.asarray(x) for x in xla_chunked_window_attention_bwd(
-        *map(jnp.asarray, (q, k, v, mask, g)), H, chunk=chunk)]
-    got = wa.window_attention_bwd_plain(
-        *map(torch.from_numpy, (q, k, v, mask, g)), H, chunk=chunk)
-    live = mask.any(1)
-    for r, o in zip(ref, got):
-        np.testing.assert_allclose(o.numpy()[live], r[live], atol=1e-5,
-                                   rtol=0)
-
-
-@pytest.mark.parametrize("form", ["stacked", "fullstore"])
-def test_bwd_plain_matches_the_repro_kernels_interpret(form):
-    """The two TPU backward kernels the CUDA kernel replaces, run in
-    interpret mode, on every window with a valid key (they add the -1e9
-    bias where the port replaces the logit, which differs only in fully
-    masked windows)."""
-    W, T, C, H = 3, 16, 32, 4
-    q, k, v, mask, g = _bwd_inputs(W, T, C, seed=9, fully_masked=(1,))
-    fn = {"stacked": pallas_window_attention_bwd,
-          "fullstore": pallas_window_attention_bwd_fullstore}[form]
-    ref = [np.asarray(x) for x in fn(*map(jnp.asarray, (q, k, v, mask, g)),
-                                     H, interpret=True)]
-    got = wa.window_attention_bwd_plain(
-        *map(torch.from_numpy, (q, k, v, mask, g)), H)
-    live = mask.any(1)
-    for r, o in zip(ref, got):
-        np.testing.assert_allclose(o.numpy()[live], r[live], atol=1e-5,
-                                   rtol=0)
-
-
-def test_function_gradcheck_float64():
-    """The Function's backward is the derivative of its forward (finite
-    differences in float64, fully masked window included)."""
-    q, k, v, mask = _inputs(3, 5, 8, seed=4, fully_masked=(1,))
-    t = [torch.from_numpy(x).double().requires_grad_() for x in (q, k, v)]
-    m = torch.from_numpy(mask)
-    assert torch.autograd.gradcheck(
-        lambda a, b, c: wa.window_attention(a, b, c, m, 2), t)
 
 
 def test_bwd_plain_bf16_returns_bf16():
