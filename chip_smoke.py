@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SST inference, training and evaluation paths
-and its OcOccNet serving, training and evaluation paths on one CUDA card.
+"""Drive the PyTorch port's SST inference, training and evaluation paths,
+its OcOccNet serving, training and evaluation paths and CenterPoint's
+inference, training and evaluation paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -106,7 +107,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
     classification bias lifted so that the decode keeps boxes) and frames:
     each frame must launch 12 forward kernels per level and no backward
     one. Prints the predict's ms per frame under the CLI.
-12. Print the kernels' JSON line (the bf16 and the float32 tensor-core
+12. CenterPoint inference at the full width of ``CenterPointConfig()``
+    (float32, seeded random weights) on the dense and the sparse synthetic
+    frame (150000 and 20000 points): outputs finite and of the predict
+    shapes, the median ms per frame, the peak memory and the occupied
+    voxels of each stage against its budget. No hand-written kernel lies on
+    CenterPoint's path: the window-attention counts must read 0 after each
+    CenterPoint phase.
+13. One dense frame's head maps on the card against the port on the CPU,
+    same weights, TF32 off and again under the CLI's settings (cuDNN
+    convolutions in TF32), each at the bar stated beside its constant.
+14. CenterPoint training through ``tools/train.py centerpoint``'s ``main``
+    on phase 5's 3 frames: 4 float32 steps, finite losses, every parameter
+    moved but the velocity branch's 3 (code weight 0), ms/step and the
+    peak memory.
+15. One float32 CenterPoint training step (TF32 off) of one dense frame on
+    the card against the CPU: the losses, every clipped gradient and every
+    parameter after the update, at the bars beside their constants.
+16. ``tools/test.py centerpoint`` with ``--metric kitti`` and ``--metric
+    waymo`` on phase 14's checkpoint (its heatmap bias lifted so that the
+    decode keeps boxes) and frames; the predict's ms per frame under the
+    CLI.
+17. Print the kernels' JSON line (the bf16 and the float32 tensor-core
     kernels, each level apart; launches of the bf16 frames and bf16
     training, and of the float32 frame, float32 training and the SST
     evaluation), then as the last line ``{"ok": true, "device": {...}}``.
@@ -153,6 +175,9 @@ from objectcentricocccompletion_torch.tools import (
     create_submission as submission_cli)
 from objectcentricocccompletion_torch.tools import test as test_cli
 from objectcentricocccompletion_torch.tools import train as train_cli
+from objectcentricocccompletion_torch.training.detector_trainer import (
+    make_detector_train_step)
+from objectcentricocccompletion_torch.training.optim import make_optimizer
 from objectcentricocccompletion_torch.training.trainer import (
     CheckpointManager)
 from objectcentricocccompletion_torch.utils.device import card_info
@@ -259,6 +284,33 @@ EVAL_CHECK_TUNE_STEPS = 3
 # the decode keeps boxes scored above 0.1, which a model trained for 4 steps
 # from the prior's bias (sigmoid about 0.01) does not reach
 SST_EVAL_CLS_LIFT = 3.0
+# CenterPoint (float32 end to end, no hand-written kernel): timed frames per
+# synthetic frame; card against CPU bars on the head's maps, each relative
+# to max(1, the map's largest |value|), written in PERF.md before the first
+# run. TF32 off: float32 sums in another order through the sparse
+# encoder's gather-GEMMs and LayerNorms, 12 SECOND, 2 FPN and 3 head
+# convolutions (up to 4,608 terms each), every layer renormalised
+CP_TIMED_FRAMES = 5
+CP_CPU_RTOL = 1e-3
+# the CLI's settings: cuDNN's convolutions in TF32 (a 10-bit mantissa,
+# about 3e-4 relative RMS per layer on sums of random sign), 17 dense
+# convolution layers deep
+CP_TF32_CPU_RTOL = 3e-2
+CP_TRAIN_STEPS = 4
+# one float32 step card against CPU (TF32 off): the losses at the forward's
+# bar; each clipped gradient within 1e-3 of its tensor's largest |grad| plus
+# 1e-5 of the model's largest (the SST gradient check's bar); the
+# parameters after AdamW's first step at lr CP_STEP_LR as for OcOccNet: 2 lr
+# apart where the CPU's gradient lies within its bar of 0, else 1e-3 lr,
+# plus float32 rounding of O(1) weights
+CP_STEP_LR = 1e-3
+CP_STEP_LOSS_RTOL = 1e-3
+CP_STEP_GRAD_RTOL = 1e-3
+CP_STEP_GRAD_FLOOR = 1e-5
+CP_STEP_ROUNDING = 1e-6
+# added to the trained heatmap bias before the evaluation, as for SST
+CP_EVAL_HM_LIFT = 3.0
+CP_HEADS = ("heatmap", "reg", "height", "dim", "rot", "vel")
 
 
 def log(msg):
@@ -1332,6 +1384,280 @@ def phase_sst_eval(dev, train_dir):
     return dict(total)
 
 
+def no_kernel_launches(what):
+    """The window-attention kernels' counts since they were last cleared:
+    CenterPoint's path launches none."""
+    launched = dict(wa.LAUNCHES), dict(wa.BWD_LAUNCHES)
+    if any(launched):
+        raise AssertionError(f"{what}: window-attention kernels launched "
+                             f"{launched}; CenterPoint's path has none")
+
+
+def voxel_line(rows):
+    return ", ".join(f"{r['stage']} {r['occupied']}/{r['budget']}"
+                     for r in rows)
+
+
+def phase_centerpoint(dev):
+    """Full-width CenterPoint inference (float32) on the dense and the
+    sparse synthetic frame: the predict's ms per frame, the peak memory,
+    the voxels per stage; 0 window-attention launches."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = bench.build_centerpoint(device=dev, seed=0)
+    predict = make_predict_fn(model, "centerpoint")
+    frames = {"dense": bench.frame_tensors(model.cfg, dev, 150000, seed=0),
+              "sparse": bench.frame_tensors(model.cfg, dev, 20000, seed=1)}
+    for name, (pts, msk) in frames.items():
+        log(f"centerpoint frame {name}: voxels per stage (occupied/budget) "
+            f"{voxel_line(model.voxel_occupancy(pts, msk))}")
+        predict(pts, msk)                          # warm-up
+    torch.cuda.synchronize()
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for name, (pts, msk) in frames.items():
+        out = predict(pts, msk)
+        shapes = [tuple(x.shape) for x in out]
+        if shapes != [(500, 9), (500,), (500,), (500,)] or not all(
+                torch.isfinite(x.float()).all() for x in out):
+            raise AssertionError(f"centerpoint predict: shapes {shapes} or "
+                                 f"values not finite")
+        times = bench.time_frames(predict, pts, msk, CP_TIMED_FRAMES,
+                                  warmup=0)
+        log(f"centerpoint frame {name}: float32 predict "
+            f"{statistics.median(times):.3f} ms/frame (median of "
+            f"{CP_TIMED_FRAMES}: {[round(t, 3) for t in times]}), "
+            f"{int(out[3].sum())} boxes over the score threshold")
+    no_kernel_launches("centerpoint inference")
+    log(f"centerpoint inference: peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB, "
+        f"window-attention launches 0; card {card_info()}")
+
+
+def compare_cp_maps(what, got, ref, rtol):
+    for key in CP_HEADS:
+        if not torch.isfinite(got[key]).all():
+            raise AssertionError(f"{what}: {key} not finite")
+        mag = ref[key].abs().max().item()
+        err = (got[key].cpu() - ref[key]).abs().max().item()
+        tol = rtol * max(1.0, mag)
+        log(f"{what}: {key} max abs err {err:.3e} (tolerance {tol:.3e}; "
+            f"magnitude {mag:.3f})")
+        if not err <= tol:
+            raise AssertionError(f"{what} {key}: {err} > {tol}")
+
+
+def phase_cp_card_vs_cpu(dev):
+    """One dense frame's head maps, full width, float32: the card with TF32
+    off and under the CLI's settings (cuDNN convolutions in TF32) against
+    the port on the CPU, same weights."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = bench.build_centerpoint(device=dev, seed=0)
+    cpu = bench.build_centerpoint(device="cpu", seed=0)
+    pts, msk = bench.frame_tensors(card.cfg, dev, 150000, seed=0)
+    wa.LAUNCHES.clear()
+    with torch.inference_mode():
+        ref = cpu(pts.cpu(), msk.cpu())
+        a = card(pts, msk)
+        compare_cp_maps("centerpoint fp32, card vs CPU", a, ref,
+                        CP_CPU_RTOL)
+        torch.backends.cudnn.allow_tf32 = True
+        b = card(pts, msk)
+        compare_cp_maps("centerpoint fp32 under the CLI's TF32 settings "
+                        "(cuDNN TF32 on, matmul TF32 off), card vs CPU", b,
+                        ref, CP_TF32_CPU_RTOL)
+    torch.backends.cudnn.allow_tf32 = False
+    no_kernel_launches("centerpoint card vs CPU")
+
+
+def phase_cp_training(dev, frames_dir, work):
+    """Full-width CenterPoint training through ``tools/train.py
+    centerpoint``'s ``main`` on the SST training phase's 3 synthetic
+    frames, under the CLI's own TF32 settings; ms/step from the third."""
+    infos = os.path.join(frames_dir, "infos.pkl")
+    stamps = []
+
+    def hook(step, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats(dev)
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    done = train_cli.main(["centerpoint", "--infos", infos, "--data-root",
+                           frames_dir, "--total-steps", str(CP_TRAIN_STEPS),
+                           "--log-interval", "1", "--work-dir", work,
+                           "--device", "cuda", "--seed", "0"], hooks=[hook])
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    no_kernel_launches("centerpoint training")
+    if done != CP_TRAIN_STEPS or len(stamps) != CP_TRAIN_STEPS:
+        raise AssertionError(f"centerpoint training ran {len(stamps)} steps")
+    rows = [json.loads(line) for line in
+            open(os.path.join(work, "metrics.jsonl"))]
+    keys = ("loss", "loss_heatmap", "loss_bbox", "grad_norm")
+    if [r["step"] for r in rows] != list(range(1, CP_TRAIN_STEPS + 1)) or \
+            not all(abs(r[k]) < float("inf") for r in rows for k in keys):
+        raise AssertionError(f"centerpoint training metrics {rows}")
+    for r in rows:
+        log("centerpoint training step " + " ".join(
+            f"{k}={r[k]}" for k in ("step",) + keys + ("frames_per_sec",)))
+    trained = torch.load(os.path.join(work, "ckpt",
+                                      f"step_{CP_TRAIN_STEPS}.pt"),
+                         map_location="cpu", weights_only=True)["model"]
+    init = train_cli.build_detector(
+        "centerpoint", device="cpu",
+        generator=torch.Generator().manual_seed(0)).state_dict()
+    same = {n for n, p in init.items() if torch.equal(p, trained[n])}
+    # the velocity branch's code weights are 0: no gradient, no decay
+    if same != {"head.task0.GroupNorm_6.weight",
+                "head.task0.GroupNorm_6.bias", "head.task0.vel_out.bias"}:
+        raise AssertionError(f"centerpoint parameters that did not move: "
+                             f"{sorted(same)}")
+    times = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+    timed = times[TRAIN_TIMED_FROM - 1:]
+    log(f"centerpoint training: {CP_TRAIN_STEPS} float32 steps at full "
+        f"width through the CLI, {statistics.median(timed):.3f} ms/step "
+        f"(median of steps {TRAIN_TIMED_FROM}-{CP_TRAIN_STEPS}; all "
+        f"{[round(x, 3) for x in times]}), peak memory {peak:.3f} GiB, "
+        f"window-attention launches 0, {len(init) - len(same)} of "
+        f"{len(init)} parameter tensors moved; card {card_info()}")
+
+
+def phase_cp_fp32_step(dev):
+    """One float32 training step (TF32 off, lr ``CP_STEP_LR``) of one dense
+    frame at full width on the card and on the CPU from the same weights:
+    the loss dict, every clipped gradient and every parameter after the
+    update."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = []
+    for where in (dev, torch.device("cpu")):
+        model = bench.build_centerpoint(device=where, seed=0).train()
+        batch = bench.train_batch(model.cfg, where, 150000, seed=0)
+        init = {n: p.detach().cpu().clone()
+                for n, p in model.named_parameters()}
+        optimizer, schedule = make_optimizer(model.named_parameters(),
+                                             CP_STEP_LR, 100)
+        metrics = make_detector_train_step(model, optimizer, schedule)(
+            0, batch)
+        res.append(({k: float(v) for k, v in metrics.items()},
+                    {n: (p.detach().cpu(), p.grad.cpu())
+                     for n, p in model.named_parameters()}))
+    no_kernel_launches("centerpoint fp32 step")
+    lr = schedule(0)
+    (card, card_p), (cpu, cpu_p) = res
+    for k, ref in cpu.items():
+        err = abs(card[k] - ref)
+        tol = CP_STEP_LOSS_RTOL * max(1.0, abs(ref))
+        log(f"centerpoint fp32 step, card vs CPU: {k} {card[k]:.6f} vs "
+            f"{ref:.6f}, err {err:.3e} (tolerance {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"centerpoint fp32 step {k}: {err} > {tol}")
+    largest = max(float(g.abs().max()) for _, g in cpu_p.values())
+    bars = {n: CP_STEP_GRAD_RTOL * float(g.abs().max())
+            + CP_STEP_GRAD_FLOOR * largest for n, (_, g) in cpu_p.items()}
+    grad_err = max((float((card_p[n][1] - g).abs().max()) / bars[n], n)
+                   for n, (_, g) in cpu_p.items())
+    log(f"centerpoint fp32 step, card vs CPU: {len(cpu_p)} clipped "
+        f"gradients (largest |g| {largest:.3e}), worst share of its bar "
+        f"{grad_err[0]:.3e} at {grad_err[1]}")
+    if not grad_err[0] <= 1.0:
+        raise AssertionError(f"centerpoint fp32 step gradients: {grad_err}")
+    near = far = moved = 0.0
+    for n, (p, g) in cpu_p.items():
+        diff = (card_p[n][0] - p).abs()
+        small = g.abs() < bars[n]
+        near = max(near, float(torch.where(small, diff, 0).max()))
+        far = max(far, float(torch.where(small, 0, diff).max()))
+        moved = max(moved, float((p - init[n]).abs().max()))
+    near_tol = CP_STEP_ROUNDING + 2 * lr
+    far_tol = CP_STEP_ROUNDING + 1e-3 * lr
+    log(f"centerpoint fp32 step, card vs CPU: {len(cpu_p)} parameters "
+        f"after the update at lr {lr:.3e} (largest move {moved:.3e}): "
+        f"{near:.3e} where |g| lies within its bar (tolerance "
+        f"{near_tol:.3e}), {far:.3e} elsewhere (tolerance {far_tol:.3e})")
+    if not (near <= near_tol and far <= far_tol):
+        raise AssertionError(f"centerpoint fp32 step parameters: {near}, "
+                             f"{far}")
+    if not moved > 0.5 * lr:
+        raise AssertionError(f"centerpoint fp32 step: no parameter moved by "
+                             f"half of lr {lr}: {moved}")
+
+
+def phase_cp_eval(dev, frames_dir, work):
+    """``tools/test.py centerpoint --metric kitti`` and ``--metric waymo``
+    on the CenterPoint training phase's checkpoint (its heatmap bias lifted
+    by ``CP_EVAL_HM_LIFT`` so that the decode keeps boxes) and frames:
+    the predict's ms per frame under the CLI; 0 window-attention
+    launches."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ckpt = CheckpointManager(os.path.join(work, "ckpt"))
+    state = torch.load(ckpt.path(ckpt.steps()[-1]), map_location="cpu",
+                       weights_only=True)
+    state["model"]["head.task0.heatmap_out.bias"] += CP_EVAL_HM_LIFT
+    lifted = os.path.join(work, "ckpt_eval")
+    os.makedirs(lifted, exist_ok=True)
+    torch.save(state, os.path.join(lifted, "step_1.pt"))
+    infos = os.path.join(frames_dir, "infos.pkl")
+    n = len(FrameDataset(infos, frames_dir))
+    make = detector_eval.make_predict_fn
+    try:
+        for metric in ("kitti", "waymo"):
+            times = []
+
+            def timed_make(model, family):
+                fn = make(model, family)
+
+                def call(points, mask):
+                    sync()
+                    t = time.perf_counter()
+                    out = fn(points, mask)
+                    sync()
+                    times.append((time.perf_counter() - t) * 1e3)
+                    return out
+                return call
+
+            detector_eval.make_predict_fn = timed_make
+            wa.LAUNCHES.clear()
+            wa.BWD_LAUNCHES.clear()
+            t = time.perf_counter()
+            out_dir = os.path.join(work, metric)
+            with contextlib.redirect_stdout(io.StringIO()):
+                metrics = test_cli.main([
+                    "centerpoint", "--infos", infos, "--data-root",
+                    frames_dir, "--ckpt-dir", lifted, "--metric", metric,
+                    "--out-dir", out_dir, "--device", "cuda"])
+            wall = time.perf_counter() - t
+            no_kernel_launches(f"centerpoint eval {metric}")
+            if len(times) != n:
+                raise AssertionError(f"centerpoint eval {metric}: "
+                                     f"{len(times)} predicts for {n} frames")
+            if metric == "kitti":
+                shown = {k: v for k, v in metrics.items() if "_3d_" in k}
+                if len(shown) != 3:
+                    raise AssertionError(f"centerpoint kitti {metrics}")
+            else:
+                shown = {k: v for k, v in metrics.items()
+                         if k.startswith("OBJECT_TYPE_TYPE_VEHICLE")}
+                preds = read_bin(os.path.join(out_dir, "pred.bin"))
+                if not shown or not preds:
+                    raise AssertionError(f"centerpoint waymo: {len(preds)} "
+                                         f"predictions, metrics {metrics}")
+            log(f"tools/test.py centerpoint --metric {metric}: {n} frames, "
+                f"wall {wall:.3f} s, predict "
+                f"{statistics.median(times):.3f} ms/frame (median; "
+                f"{[round(x, 3) for x in times]}), window-attention "
+                f"launches 0; {shown}; card {card_info()}")
+    finally:
+        detector_eval.make_predict_fn = make
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1395,6 +1721,20 @@ def main():
         t = time.perf_counter()
         eval_fwd = phase_sst_eval(dev, sst_dir)
         log(f"phase sst evaluation: {time.perf_counter() - t:.1f} s")
+        cp_frames = os.path.join(sst_dir, "frames")
+        cp_work = os.path.join(keep, "centerpoint")
+        for name, run in (
+                ("centerpoint inference", lambda: phase_centerpoint(dev)),
+                ("centerpoint card vs CPU",
+                 lambda: phase_cp_card_vs_cpu(dev)),
+                ("centerpoint training",
+                 lambda: phase_cp_training(dev, cp_frames, cp_work)),
+                ("centerpoint fp32 step", lambda: phase_cp_fp32_step(dev)),
+                ("centerpoint evaluation",
+                 lambda: phase_cp_eval(dev, cp_frames, cp_work))):
+            t = time.perf_counter()
+            run()
+            log(f"phase {name}: {time.perf_counter() - t:.1f} s")
 
     # launches on the model's paths: bf16 inference and training run the
     # bf16 kernels, the float32 frame, float32 training and the SST

@@ -1,14 +1,22 @@
-"""Weight converter: a flax params tree of the JAX package's ``SSTDetector``
-or ``OcOccNetWithLoss`` to the port's ``state_dict``, and back.
+"""Weight converter: a flax params tree of the JAX package's ``SSTDetector``,
+``OcOccNetWithLoss`` or ``DynamicCenterPoint`` to the port's
+``state_dict``, and back.
 
 The input is a nested dict of numpy arrays (``jax.device_get`` of the
 params, or any tree read from disk); this module needs no JAX. Conversions:
 Dense kernel ``[in, out]`` -> Linear weight ``[out, in]``; Conv kernel HWIO
--> OIHW; LayerNorm / GroupNorm ``scale`` -> ``weight``; ``bias`` stays.
-Module names: ``backbone/block{i}_shift{s}`` -> ``backbone.layers.{2i+s}``,
-``dil{i}`` -> ``neck_convs.{i}``, ``GroupNorm_{i}`` -> ``neck_norms.{i}``;
-every other name (every OcOccNet name among them) is the flax path joined
-with dots.
+-> OIHW; the kernel of a ``deblock{i}`` larger than 1x1 (SECONDFPN's
+upsampling blocks, ``ConvTranspose`` with kernel = stride) HWIO -> torch's
+``ConvTranspose2d`` ``[in, out, kh, kw]`` with its taps mirrored (flax
+scatters tap (i, j) where torch scatters (kh-1-i, kw-1-j)); sparse-conv
+kernels ``[K, Cin, Cout]`` (``kernel``, ``conv2_kernel``, ``down{i}_kernel``,
+``conv_out_kernel``) stay as they are, under their own names; LayerNorm /
+GroupNorm ``scale`` -> ``weight``; ``bias`` stays. Module names:
+``backbone/block{i}_shift{s}`` -> ``backbone.layers.{2i+s}``, ``dil{i}`` ->
+``neck_convs.{i}``, and at the top level (SST's neck) ``GroupNorm_{i}`` ->
+``neck_norms.{i}``; every other name (every OcOccNet and CenterPoint name
+among them, CenterPoint's nested ``GroupNorm_{i}`` too) is the flax path
+joined with dots.
 """
 from __future__ import annotations
 
@@ -21,8 +29,12 @@ _RENAMES = (
     (re.compile(r"^block(\d+)_shift(\d)$"),
      lambda m: f"layers.{2 * int(m[1]) + int(m[2])}"),
     (re.compile(r"^dil(\d+)$"), lambda m: f"neck_convs.{m[1]}"),
+)
+# the top level only: SST's neck norms (CenterPoint's sit deeper)
+_TOP_RENAMES = _RENAMES + (
     (re.compile(r"^GroupNorm_(\d+)$"), lambda m: f"neck_norms.{m[1]}"),
 )
+_DEBLOCK = re.compile(r"^deblock\d+$")
 _INVERSE = (
     (re.compile(r"^layers\.(\d+)$"),
      lambda m: f"block{int(m[1]) // 2}_shift{int(m[1]) % 2}"),
@@ -47,6 +59,13 @@ def _rename(name: str, rules) -> str:
     return name
 
 
+def _transposed(mods, spatial) -> bool:
+    """A SECONDFPN upsampling block: ``deblock{i}`` with a kernel larger
+    than 1x1 (its stride-1 blocks are 1x1 convolutions)."""
+    return bool(mods) and bool(_DEBLOCK.match(mods[-1])) \
+        and spatial[0] * spatial[1] > 1
+
+
 def flax_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
     """Nested flax params (numpy leaves) -> the port's state_dict (float32
     CPU tensors)."""
@@ -54,10 +73,15 @@ def flax_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
     for path, leaf in _flatten(params):
         a = np.asarray(leaf, np.float32)
         *mods, name = path
-        key = ".".join(_rename(m, _RENAMES) for m in mods)
-        if name == "kernel":
+        key = ".".join(_rename(m, _TOP_RENAMES if i == 0 else _RENAMES)
+                       for i, m in enumerate(mods))
+        if (name == "kernel" or name.endswith("_kernel")) and a.ndim == 3:
+            pass                      # sparse-conv kernel [K, Cin, Cout]
+        elif name == "kernel":
             if a.ndim == 2:
                 a = a.T
+            elif a.ndim == 4 and _transposed(mods, a.shape[:2]):
+                a = a[::-1, ::-1].transpose(2, 3, 0, 1)
             elif a.ndim == 4:
                 a = a.transpose(3, 2, 0, 1)
             else:
@@ -83,6 +107,9 @@ def state_dict_to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
         mods = [_rename(m, _INVERSE) for m in mods]
         if name == "weight" and a.ndim == 2:
             a, name = a.T, "kernel"
+        elif name == "weight" and a.ndim == 4 and _transposed(mods,
+                                                               a.shape[2:]):
+            a, name = a.transpose(2, 3, 0, 1)[::-1, ::-1], "kernel"
         elif name == "weight" and a.ndim == 4:
             a, name = a.transpose(2, 3, 1, 0), "kernel"
         elif name == "weight":

@@ -1,8 +1,8 @@
 """Detector evaluation (counterpart of the JAX package's
-``evalx/detector_eval.py``; the SST family so far): prediction over the
-val frames on the model's device, score filtering and per-class rotated
-NMS, then KITTI-protocol AP or the Waymo ``.bin`` files and the native
-mAP / mAPH.
+``evalx/detector_eval.py``; the SST and CenterPoint families so far):
+prediction over the val frames on the model's device, score filtering and
+per-class rotated NMS, then KITTI-protocol AP or the Waymo ``.bin`` files
+and the native mAP / mAPH.
 
 The IoU matrices of the NMS and of the AP are computed on the model's
 device; the greedy sweeps, the matching and the files stay on the host.
@@ -46,10 +46,11 @@ def host_nms(boxes: np.ndarray, scores: np.ndarray, iou_thresh: float = 0.25,
 
 
 def make_predict_fn(model, family: str):
-    """``(points, mask) -> (boxes [K, 7], scores [K], labels [K],
-    valid [K])``, fixed output size, on the model's device. The model holds
-    its own weights (the JAX version takes them as an argument)."""
-    if family != "sst":
+    """``(points, mask) -> (boxes [K, 7] (CenterPoint: [K, 9], velocity
+    last), scores [K], labels [K], valid [K])``, fixed output size, on the
+    model's device. The model holds its own weights (the JAX version takes
+    them as an argument)."""
+    if family not in ("sst", "centerpoint"):
         raise ValueError(f"detector family {family!r} is not ported yet")
 
     @torch.inference_mode()

@@ -1,6 +1,6 @@
 """Latency benchmark of the port (counterpart of the JAX repository's
-``tools/benchmark.py`` and ``benchmarks/bench_detectors.py``; the ``sst``
-and ``ococcnet`` families so far).
+``tools/benchmark.py`` and ``benchmarks/bench_detectors.py``; the ``sst``,
+``ococcnet`` and ``centerpoint`` families so far).
 
     python -m objectcentricocccompletion_torch.tools.benchmark sst \\
         --frames 20 --dtype bfloat16
@@ -10,6 +10,8 @@ and ``ococcnet`` families so far).
         [--frames 20] [--eval-layout dense] [--dtype float32]
     python -m objectcentricocccompletion_torch.tools.benchmark ococcnet \\
         --train [--frames 10] [--eval-layout dense] [--dtype float32]
+    python -m objectcentricocccompletion_torch.tools.benchmark centerpoint \\
+        [--train] [--frames 20] [--num-real 150000]
 
 ``sst`` builds the full-width ``SSTDetector(SSTDetectorConfig())`` with
 weights drawn from a seeded ``torch.Generator`` (no checkpoint is needed). By
@@ -37,6 +39,15 @@ and prints the per-step latency (host clock around a step that ends in a
 device synchronise, median over the timed steps after warm-up),
 tracklets/s and the peak memory over the timed steps.
 
+``centerpoint`` builds the full-width ``DynamicCenterPoint(
+CenterPointConfig())`` (float32; seeded random weights) and times
+``predict`` on a ``synth_frame`` at the config's 160,000-point budget, or,
+with ``--train``, training steps on it (its 32 boxes padded to 128); it
+prints the latency and the peak memory as for ``sst``, and the occupied
+voxels of each stage against its budget (the voxelized input, the
+encoder's three downsampled stages and conv_out), which both packages cut
+silently.
+
 ``--profile N`` also traces N more frames (steps; for ``ococcnet``
 batches, predict and decode) with ``torch.profiler``, prints the operators
 that take the most device time, and adds the device's busy time per frame
@@ -58,6 +69,7 @@ from ..configs.ococcnet_config import OcOccNetConfig
 from ..data.synthetic import synth_frame, synthetic_batch
 from ..data.tracklet import TrackletBatch
 from ..evalx.detector_eval import make_predict_fn
+from ..models.centerpoint import CenterPointConfig, DynamicCenterPoint
 from ..models.ococcnet import OcOccNetWithLoss, gt_occ_to_roi_frame
 from ..models.sst_detector import SSTDetector, SSTDetectorConfig
 from ..parallel.train import create_train_state, make_train_step
@@ -80,25 +92,34 @@ def build_sst(cfg: SSTDetectorConfig, device="cuda", seed: int = 0
     return SSTDetector(cfg, device=device, generator=gen).eval()
 
 
-def frame_tensors(cfg: SSTDetectorConfig, device, num_real: int = 150000,
-                  seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
-    """A ``synth_frame`` at the config's point budget, on ``device``."""
-    points, mask, *_ = synth_frame(cfg.sst.max_points, cfg.sst.pc_range,
-                                   num_real=num_real, seed=seed)
+def _frame_budget(cfg) -> tuple[int, tuple]:
+    """(point budget, pc_range) of an SST or a CenterPoint config."""
+    c = getattr(cfg, "sst", cfg)
+    return c.max_points, c.pc_range
+
+
+def frame_tensors(cfg, device, num_real: int = 150000, seed: int = 0
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A ``synth_frame`` at the (SST or CenterPoint) config's point budget,
+    on ``device``."""
+    points, mask, *_ = synth_frame(*_frame_budget(cfg), num_real=num_real,
+                                   seed=seed)
     dev = resolve_device(device)
     return torch.from_numpy(points).to(dev), torch.from_numpy(mask).to(dev)
 
 
-def train_batch(cfg: SSTDetectorConfig, device, num_real: int = 150000,
+def train_batch(cfg, device, num_real: int = 150000,
                 seed: int = 0) -> FrameBatch:
     """A one-frame batch of ``synth_frame`` with its boxes padded (or cut)
-    to ``cfg.max_gt``, the padding invalid, on ``device``."""
+    to ``cfg.max_gt`` (CenterPoint: the frame datasets' 128), the padding
+    invalid, on ``device``."""
     points, mask, boxes, labels, valid = synth_frame(
-        cfg.sst.max_points, cfg.sst.pc_range, num_real=num_real, seed=seed)
-    m = min(len(boxes), cfg.max_gt)
-    pad = {"gt_boxes": np.zeros((cfg.max_gt, 7), np.float32),
-           "gt_labels": np.zeros((cfg.max_gt,), np.int32),
-           "gt_valid": np.zeros((cfg.max_gt,), bool)}
+        *_frame_budget(cfg), num_real=num_real, seed=seed)
+    max_gt = getattr(cfg, "max_gt", 128)
+    m = min(len(boxes), max_gt)
+    pad = {"gt_boxes": np.zeros((max_gt, 7), np.float32),
+           "gt_labels": np.zeros((max_gt,), np.int32),
+           "gt_valid": np.zeros((max_gt,), bool)}
     pad["gt_boxes"][:m], pad["gt_labels"][:m] = boxes[:m], labels[:m]
     pad["gt_valid"][:m] = valid[:m]
     return collate_frames([dict(points=points, points_mask=mask,
@@ -108,6 +129,19 @@ def train_batch(cfg: SSTDetectorConfig, device, num_real: int = 150000,
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _card(dev: torch.device) -> dict:
+    """The device a result ran on, with the card's name and power limit."""
+    return {"device": str(dev),
+            "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                     else "cpu"),
+            "card": card_info() if dev.type == "cuda" else None}
+
+
+def _peak_gib(dev: torch.device):
+    return (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else None)
 
 
 def time_calls(fn, n: int, device: torch.device, warmup: int = 2
@@ -179,10 +213,7 @@ def bench_sst(frames: int, dtype: str = "bfloat16", device="cuda",
     res = {"family": "sst", "dtype": dtype, "frames": frames,
            "num_real_points": num_real, "latency_ms": med,
            "mean_ms": statistics.fmean(times), "fps": 1e3 / med,
-           "unit": "frames/sec", "device": str(dev),
-           "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                    else "cpu"),
-           "card": card_info() if dev.type == "cuda" else None}
+           "unit": "frames/sec", **_card(dev)}
     if profile_n:
         res.update(profile_calls(lambda: predict(points, mask), profile_n,
                                  dev))
@@ -221,15 +252,83 @@ def bench_sst_train(steps: int, dtype: str = "bfloat16", device="cuda",
            "steps": steps, "num_real_points": num_real, "step_ms": med,
            "mean_ms": statistics.fmean(times),
            "metrics": {k: float(v) for k, v in metrics.items()},
-           "peak_memory_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
-                               if dev.type == "cuda" else None),
-           "device": str(dev),
-           "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                    else "cpu"),
-           "card": card_info() if dev.type == "cuda" else None}
+           "peak_memory_gib": _peak_gib(dev),
+           **_card(dev)}
     if profile_n:
         res.update(profile_calls(lambda: step_fn(next(count), batch),
                                  profile_n, dev, unit="step"))
+    return res
+
+
+def build_centerpoint(device="cuda", seed: int = 0) -> DynamicCenterPoint:
+    """Full-width ``CenterPointConfig()`` with seeded random weights."""
+    gen = torch.Generator().manual_seed(seed)
+    return DynamicCenterPoint(CenterPointConfig(), device=device,
+                              generator=gen).eval()
+
+
+def bench_centerpoint(frames: int = 20, device="cuda", seed: int = 0,
+                      num_real: int = 150000, profile_n: int = 0) -> dict:
+    """Full-width CenterPoint ``predict`` per frame (median over ``frames``
+    after warm-up), the peak memory over the timed frames and the voxels
+    per stage against their budgets."""
+    dev = resolve_device(device)
+    model = build_centerpoint(dev, seed)
+    points, mask = frame_tensors(model.cfg, dev, num_real, seed)
+    predict = make_predict_fn(model, "centerpoint")
+    predict(points, mask)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    times = time_frames(predict, points, mask, frames, warmup=1)
+    med = statistics.median(times)
+    res = {"family": "centerpoint", "dtype": "float32", "frames": frames,
+           "num_real_points": num_real, "latency_ms": med,
+           "mean_ms": statistics.fmean(times), "fps": 1e3 / med,
+           "unit": "frames/sec", "peak_memory_gib": _peak_gib(dev),
+           "voxels": model.voxel_occupancy(points, mask), **_card(dev)}
+    if profile_n:
+        res.update(profile_calls(lambda: predict(points, mask), profile_n,
+                                 dev))
+    return res
+
+
+def bench_centerpoint_train(steps: int = 10, device="cuda", seed: int = 0,
+                            num_real: int = 150000, profile_n: int = 0,
+                            warmup: int = 2) -> dict:
+    """Full-width CenterPoint training steps (forward, loss, backward, clip,
+    AdamW at the schedule of ``train_detector``'s defaults) on one frame;
+    the median step over ``steps`` after ``warmup``."""
+    dev = resolve_device(device)
+    model = build_centerpoint(dev, seed).train()
+    batch = train_batch(model.cfg, dev, num_real, seed)
+    optimizer, schedule = make_optimizer(
+        model.named_parameters(), base_lr=1e-5,
+        total_steps=warmup + steps + profile_n)
+    step_fn = make_detector_train_step(model, optimizer, schedule)
+    count = iter(range(warmup + steps + profile_n))
+    for _ in range(warmup):
+        step_fn(next(count), batch)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    metrics = {}
+
+    def step():
+        metrics.update(step_fn(next(count), batch))
+
+    times = time_calls(step, steps, dev, warmup=0)
+    med = statistics.median(times)
+    res = {"family": "centerpoint", "mode": "train", "dtype": "float32",
+           "steps": steps, "num_real_points": num_real, "step_ms": med,
+           "mean_ms": statistics.fmean(times),
+           "metrics": {k: float(v) for k, v in metrics.items()},
+           "peak_memory_gib": _peak_gib(dev),
+           "voxels": model.voxel_occupancy(batch.points[0],
+                                           batch.points_mask[0]),
+           **_card(dev)}
+    if profile_n:
+        res.update(profile_calls(step, profile_n, dev, unit="step"))
     return res
 
 
@@ -307,12 +406,8 @@ def bench_ococcnet(batches: int = 20, dtype: str = "bfloat16",
            "mean_ms": statistics.fmean(times), "fps": batch * 1e3 / med,
            "unit": "tracklets/sec", "decode_ms": statistics.median(dec),
            "decode_queries": queries.shape[2], **layout_points(model, b),
-           "peak_memory_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
-                               if dev.type == "cuda" else None),
-           "shapes": shapes, "device": str(dev),
-           "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                    else "cpu"),
-           "card": card_info() if dev.type == "cuda" else None}
+           "peak_memory_gib": _peak_gib(dev),
+           "shapes": shapes, **_card(dev)}
     if profile_n:
         @torch.inference_mode()
         def serve():
@@ -351,12 +446,8 @@ def bench_ococcnet_train(steps: int = 10, dtype: str = "bfloat16",
            "step_ms": med, "mean_ms": statistics.fmean(times),
            "fps": batch * 1e3 / med, "unit": "tracklets/sec",
            "metrics": metrics, **layout_points(model, b),
-           "peak_memory_gib": (torch.cuda.max_memory_allocated(dev) / 2**30
-                               if dev.type == "cuda" else None),
-           "device": str(dev),
-           "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                    else "cpu"),
-           "card": card_info() if dev.type == "cuda" else None}
+           "peak_memory_gib": _peak_gib(dev),
+           **_card(dev)}
     if profile_n:
         res.update(profile_calls(lambda: step_fn(next(count), b), profile_n,
                                  dev, unit="step"))
@@ -365,7 +456,7 @@ def bench_ococcnet_train(steps: int = 10, dtype: str = "bfloat16",
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
-    p.add_argument("family", choices=["sst", "ococcnet"])
+    p.add_argument("family", choices=["sst", "ococcnet", "centerpoint"])
     p.add_argument("--frames", type=int, default=20,
                    help="timed frames (with --train: timed steps; "
                         "ococcnet: timed batches)")
@@ -373,8 +464,10 @@ def main(argv=None) -> None:
                    help="ococcnet: point layout")
     p.add_argument("--train", action="store_true",
                    help="time training steps instead of predict")
-    p.add_argument("--dtype", default="bfloat16",
-                   choices=["bfloat16", "float32"])
+    p.add_argument("--dtype", default=None,
+                   choices=["bfloat16", "float32"],
+                   help="sst / ococcnet: bfloat16 by default; centerpoint "
+                        "computes in float32 only")
     p.add_argument("--device", default="cuda")
     p.add_argument("--num-real", type=int, default=150000,
                    help="real points in the synthetic frame")
@@ -382,6 +475,15 @@ def main(argv=None) -> None:
                    help="also trace N frames (or steps) with "
                         "torch.profiler")
     args = p.parse_args(argv)
+    if args.family == "centerpoint":
+        if args.dtype not in (None, "float32"):
+            raise SystemExit("centerpoint computes in float32 end to end")
+        bench = bench_centerpoint_train if args.train else bench_centerpoint
+        print(json.dumps(bench(args.frames, args.device,
+                               num_real=args.num_real,
+                               profile_n=args.profile)))
+        return
+    args.dtype = args.dtype or "bfloat16"
     if args.family == "ococcnet":
         bench = bench_ococcnet_train if args.train else bench_ococcnet
         print(json.dumps(bench(

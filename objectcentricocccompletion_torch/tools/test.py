@@ -1,5 +1,6 @@
 """Evaluation CLI of the port (counterpart of the JAX repository's
-``tools/test.py``; the ``ococcnet``, ``ctrl`` and ``sst`` families so far).
+``tools/test.py``; the ``ococcnet``, ``ctrl``, ``sst`` and ``centerpoint``
+families so far).
 
     python -m objectcentricocccompletion_torch.tools.test ococcnet \\
         --proposals data/proposals.pkl --gt-candidates data/cands.pkl \\
@@ -8,7 +9,7 @@
         [--ctrl-class veh] [--occ-baseline] [--tta] [--tune-steps N] \\
         [--no-occ] [--max-tracklets N] [--eval-layout dense|packed] \\
         [--tiny] [--device cuda]
-    python -m objectcentricocccompletion_torch.tools.test sst \\
+    python -m objectcentricocccompletion_torch.tools.test sst|centerpoint \\
         --infos data/infos.pkl --data-root data \\
         --ckpt-dir work_dirs/sst/ckpt [--metric kitti|waymo] \\
         [--score-thresh 0.1] [--max-frames N] [--out-dir DIR] [--tiny] \\
@@ -20,8 +21,9 @@ over the test tracklets (every tracklet of at least one frame), write
 ``results.bin`` and ``gt.bin`` into ``--out-dir``, score them with the
 native Waymo metrics and, for ``ococcnet``, the occupancy IoU (``ctrl`` has
 no occupancy decoder). ``--eval-layout`` defaults to ``dense``.
-``sst`` restores ``tools/train.py sst``'s checkpoint and reports KITTI AP
-(class ``Car``) or the native Waymo mAP / mAPH over the frames of
+``sst`` / ``centerpoint`` restore ``tools/train.py sst`` / ``centerpoint``'s
+checkpoint and report KITTI AP (class ``Car``; CenterPoint's 9-dof boxes
+are cut to 7) or the native Waymo mAP / mAPH over the frames of
 ``--infos``. The metrics are printed as JSON. Everything runs on
 ``--device`` (``cuda`` unless the caller asks for the CPU).
 
@@ -40,10 +42,9 @@ from ..data.tracklet_dataset import TrackletDataset
 from ..evalx.detector_eval import evaluate_detector, evaluate_detector_waymo
 from ..evalx.evaluator import Evaluator
 from ..models.ococcnet import OcOccNetWithLoss
-from ..models.sst_detector import SSTDetector
 from ..training.trainer import CheckpointManager
 from ..utils.device import resolve_device
-from .train import FAMILIES, ococc_train_config, sst_train_config
+from .train import FAMILIES, build_detector, ococc_train_config
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -56,7 +57,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--gt-candidates")
     p.add_argument("--poses")
     p.add_argument("--occ-root", default=None)
-    # frame-family inputs (sst)
+    # frame-family inputs (sst, centerpoint)
     p.add_argument("--infos", help="frame infos pkl")
     p.add_argument("--dataset", choices=["waymo", "argo2", "nuscenes",
                                          "lyft", "scannet", "sunrgbd"],
@@ -102,7 +103,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.model in ("ococcnet", "ctrl"):
         metrics = _eval_tracklets(args)
-    elif args.model == "sst":
+    elif args.model in ("sst", "centerpoint"):
         metrics = _eval_detector(args)
     else:
         raise NotImplementedError(
@@ -146,7 +147,7 @@ def _eval_detector(args) -> dict:
     frame_kw = dict(max_points=4096, max_gt=32) if args.tiny else {}
     ds = FrameDataset(args.infos, args.data_root, **frame_kw)
     print(f"dataset: {len(ds)} frames", flush=True)
-    model = SSTDetector(sst_train_config(args.tiny), device=dev)
+    model = build_detector(args.model, args.tiny, device=dev)
     _restore(model, args.ckpt_dir)
     model.eval()
     if args.metric == "waymo":

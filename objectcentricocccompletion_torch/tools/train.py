@@ -1,5 +1,6 @@
 """Training CLI of the port (counterpart of the JAX repository's
-``tools/train.py``; the ``ococcnet``, ``ctrl`` and ``sst`` families so far).
+``tools/train.py``; the ``ococcnet``, ``ctrl``, ``sst`` and ``centerpoint``
+families so far).
 
     python -m objectcentricocccompletion_torch.tools.train ococcnet \\
         --proposals data/proposals.pkl --gt-candidates data/cands.pkl \\
@@ -9,6 +10,9 @@
     python -m objectcentricocccompletion_torch.tools.train sst \\
         --infos data/infos.pkl --data-root data --total-steps 1000 \\
         [--dtype bfloat16] [--tiny] [--device cuda] [--work-dir DIR]
+    python -m objectcentricocccompletion_torch.tools.train centerpoint \\
+        --infos data/infos.pkl --data-root data --total-steps 1000 \\
+        [--tiny] [--device cuda] [--work-dir DIR]
 
 ``ococcnet`` / ``ctrl`` build ``OcOccNetConfig()`` (``--tiny``:
 ``tiny_config()``; ``ctrl``: the CTRL class variant of ``--ctrl-class``),
@@ -19,7 +23,11 @@ writes a dataset in the reference's layout for it. ``sst`` builds
 with ``--tiny``), reads the frames with ``FrameDataset`` (``--tiny``: 4096
 points and 32 boxes per frame, as the JAX CLI) and trains with
 ``train_detector``; ``write_synthetic_frames`` (``data/frame_dataset.py``)
-writes a production-scale synthetic dataset for it. Weights are drawn from
+writes a production-scale synthetic dataset for it. ``centerpoint`` does
+the same with ``DynamicCenterPoint`` (``CenterPointConfig()``, or
+``tiny_centerpoint_config()`` with ``--tiny``), float32 end to end: its
+``--dtype`` sets ``encoder_dtype`` as the JAX CLI does, which only the
+column layout (not ported) reads. Weights are drawn from
 a ``torch.Generator`` seeded with ``--seed``; everything runs on
 ``--device`` (``cuda`` unless the caller asks for the CPU). ``--dtype``
 sets the compute dtype; parameters stay float32.
@@ -43,6 +51,8 @@ from ..configs.ococcnet_config import (OcOccNetConfig, ctrl_cyc_config,
                                        tiny_config)
 from ..data.frame_dataset import FrameDataset
 from ..data.tracklet_dataset import TrackletDataset
+from ..models.centerpoint import (CenterPointConfig, DynamicCenterPoint,
+                                  tiny_centerpoint_config)
 from ..models.sst_detector import (SSTDetector, SSTDetectorConfig,
                                    tiny_sst_detector_config)
 from ..training.detector_trainer import train_detector
@@ -152,6 +162,29 @@ def sst_train_config(tiny: bool = False, dtype: str | None = None
     return cfg
 
 
+def centerpoint_train_config(tiny: bool = False, dtype: str | None = None
+                             ) -> CenterPointConfig:
+    cfg = tiny_centerpoint_config() if tiny else CenterPointConfig()
+    if dtype:
+        cfg = dataclasses.replace(cfg, encoder_dtype=dtype)
+    return cfg
+
+
+def build_detector(family: str, tiny: bool = False, dtype: str | None = None,
+                   device="cuda", generator: torch.Generator | None = None):
+    """The ``sst`` or ``centerpoint`` detector the CLIs train and
+    evaluate, on ``device``; weights from ``generator`` when one is
+    given."""
+    if family == "sst":
+        return SSTDetector(sst_train_config(tiny, dtype), device=device,
+                           generator=generator)
+    if family == "centerpoint":
+        return DynamicCenterPoint(centerpoint_train_config(tiny, dtype),
+                                  device=device, generator=generator)
+    raise NotImplementedError(
+        f"the {family!r} detector family is not ported yet")
+
+
 def main(argv=None,
          hooks: Sequence[Callable[[int, dict], None]] = ()) -> int:
     """Run the CLI on ``argv``; ``hooks`` go to the training loop (for a
@@ -172,7 +205,7 @@ def main(argv=None,
                      ckpt_interval=args.ckpt_interval,
                      log_interval=args.log_interval, resume=not args.no_resume,
                      seed=args.seed, device=dev, hooks=hooks)
-    if args.model != "sst":
+    if args.model not in ("sst", "centerpoint"):
         raise NotImplementedError(
             f"training of the {args.model!r} family is not ported yet")
     if args.dataset != "waymo":
@@ -192,9 +225,8 @@ def main(argv=None,
                       augment=args.augment, num_sweeps=args.num_sweeps,
                       **frame_kw)
     print(f"dataset: {len(ds)} frames", flush=True)
-    cfg = sst_train_config(args.tiny, args.dtype)
-    model = SSTDetector(cfg, device=dev,
-                        generator=torch.Generator().manual_seed(args.seed))
+    model = build_detector(args.model, args.tiny, args.dtype, dev,
+                           torch.Generator().manual_seed(args.seed))
     return train_detector(model, ds, args.work_dir,
                           total_steps=args.total_steps or 1000,
                           ckpt_interval=args.ckpt_interval,

@@ -28,7 +28,8 @@ def test_port_sources_exist():
             "np_geometry.py", "loader.py", "evaluator.py", "occ_iou.py",
             "tta.py", "online_tuning.py", "waymo_bin.py", "waymo_metrics.py",
             "submission.py", "kitti_eval.py", "detector_eval.py", "test.py",
-            "create_submission.py"} <= names
+            "create_submission.py", "sparse_conv.py", "sparse_encoder.py",
+            "second.py", "centerpoint_head.py", "centerpoint.py"} <= names
     assert (ROOT / "objectcentricocccompletion_torch" / "parallel" /
             "train.py").exists()
     csrc = ROOT / "objectcentricocccompletion_torch" / "csrc"
@@ -76,3 +77,4 @@ def test_port_modules_import_without_the_jax_package():
     assert "objectcentricocccompletion_torch.parallel.train" in modules
     assert "objectcentricocccompletion_torch.evalx.evaluator" in modules
     assert "objectcentricocccompletion_torch.tools.test" in modules
+    assert "objectcentricocccompletion_torch.models.centerpoint" in modules
