@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SST inference, training and evaluation paths,
-its OcOccNet serving, training and evaluation paths and CenterPoint's
-inference, training and evaluation paths on one CUDA card.
+its OcOccNet serving, training and evaluation paths, and the inference,
+training and evaluation paths of CenterPoint and of the FSD family on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -128,7 +129,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
     waymo`` on phase 14's checkpoint (its heatmap bias lifted so that the
     decode keeps boxes) and frames; the predict's ms per frame under the
     CLI.
-17. Print the kernels' JSON line (the bf16 and the float32 tensor-core
+17. FSD inference at the full width of ``FSDConfig()`` (float32 and
+    bf16), FSDv2 (``use_clustering=False``, float32) and two-stage FSD
+    (``TwoStageFSDConfig()``, float32), seeded random weights, on the dense
+    and the sparse synthetic frame: predict shapes, finite where valid, the
+    median ms per frame, the peak memory and the budgets' counts (UNet
+    voxels per level; per class foreground points, cluster voxels and
+    clusters). No hand-written kernel lies on the FSD family's path: the
+    window-attention counts must read 0 after each FSD phase.
+18. One dense frame of two-stage FSD, float32, TF32 off, card against the
+    CPU: the segmentation at its bar; the grouping of each device on its
+    own segmentation (the slots that differ, printed); stage 1's cluster
+    forward and stage 2's outputs with both devices fed the card's grouping
+    and pooled points, at the bars beside ``FSD_CPU_RTOL``.
+19. ``tools/train.py fsd`` and ``fsd2``'s ``main`` on phase 5's 3 frames:
+    4 float32 steps each, finite losses, every parameter moved but those of
+    regression branches without positives (``FSD_REGRESSION``, listed),
+    ms/step and the peak memory.
+20. One float32 ``fsd2`` training step (TF32 off) card against CPU, both
+    fed the card's grouping and pooled points: the losses, every clipped
+    gradient and every parameter after the update, at phase 15's bars.
+21. ``tools/test.py fsd`` and ``fsd2`` with ``--metric kitti`` and
+    ``--metric waymo`` on phase 19's checkpoints (the seg head's class
+    biases and the score biases lifted by ``FSD_EVAL_LIFT`` so that
+    foreground and boxes survive the thresholds); the predict's ms per
+    frame under the CLI.
+22. Print the kernels' JSON line (the bf16 and the float32 tensor-core
     kernels, each level apart; launches of the bf16 frames and bf16
     training, and of the float32 frame, float32 training and the SST
     evaluation), then as the last line ``{"ok": true, "device": {...}}``.
@@ -162,6 +188,9 @@ from objectcentricocccompletion_torch.evalx.detector_eval import (
     make_predict_fn)
 from objectcentricocccompletion_torch.evalx.submission import read_submission
 from objectcentricocccompletion_torch.evalx.waymo_bin import read_bin
+from objectcentricocccompletion_torch.models.fsd import FSD, Grouping
+from objectcentricocccompletion_torch.models.fsd_two_stage import (
+    two_stage_loss)
 from objectcentricocccompletion_torch.models.ococcnet import (
     OcOccNetWithLoss)
 from objectcentricocccompletion_torch.models.sst_detector import SSTDetector
@@ -311,6 +340,43 @@ CP_STEP_ROUNDING = 1e-6
 # added to the trained heatmap bias before the evaluation, as for SST
 CP_EVAL_HM_LIFT = 3.0
 CP_HEADS = ("heatmap", "reg", "height", "dim", "rot", "vel")
+# the FSD family (no hand-written kernel; float32 unless --dtype): the
+# inference variants (name, family, --dtype, use_clustering), timed frames
+# per synthetic frame
+FSD_VARIANTS = (("fsd float32", "fsd", None, True),
+                ("fsd bfloat16", "fsd", "bfloat16", True),
+                ("fsdv2 float32", "fsd", None, False),
+                ("fsd2 float32", "fsd2", None, True))
+FSD_TIMED_FRAMES = 5
+# card against CPU, TF32 off, written in PERF.md before the first run:
+# seg_logits and votes within FSD_CPU_RTOL of max(1, their largest |value|)
+# (float32 sums in another order through the VFE, 9 sparse convolutions of
+# up to 27 x 192 terms and the seg head, every layer renormalised); the
+# cluster forward and the two-stage outputs, both devices fed the card's
+# grouping and pooled points, within the same bar (3 SIR blocks, the
+# 1024-wide shared MLP, 3 x 4 task heads, the RoI encoder and heads; sizes
+# decode through exp)
+FSD_CPU_RTOL = 1e-3
+# decoded boxes and cluster centres, in metres up to 75 from the sensor:
+# FSD_BOX_RTOL of their largest |value| (the centres are means of up to
+# 4,096 vote-shifted points, summed in another order; float32's step at 75 m
+# is 7.6e-6 m)
+FSD_BOX_RTOL = 1e-4
+FSD_CLUSTER_KEYS = ("cls", "reg_tasks")
+FSD_BOX_KEYS = ("boxes_tasks", "cluster_centers")
+FSD2_KEYS = ("cls2", "bbox2")
+FSD_TRAIN_STEPS = 4
+# one float32 fsd2 step card against CPU (TF32 off), both devices fed the
+# card's grouping and pooled points: CenterPoint's bars (CP_STEP_*)
+# the FSD parameters that a few steps on random weights may leave as they
+# were: a regression branch with no positive (a task's centre / size /
+# rotation MLPs, stage 2's conv_reg) gets no gradient, and its norms and
+# biases take no weight decay
+FSD_REGRESSION = ("_center.", "_dim.", "_rot.", "conv_reg.")
+# added before the evaluation to the biases of the seg head's class logits
+# (so that foreground survives seg_score_thresh after training) and of the
+# scores (the FSD tasks' or stage 2's), so that boxes pass the decode's 0.1
+FSD_EVAL_LIFT = 3.0
 
 
 def log(msg):
@@ -1386,11 +1452,11 @@ def phase_sst_eval(dev, train_dir):
 
 def no_kernel_launches(what):
     """The window-attention kernels' counts since they were last cleared:
-    CenterPoint's path launches none."""
+    CenterPoint's and the FSD family's paths launch none."""
     launched = dict(wa.LAUNCHES), dict(wa.BWD_LAUNCHES)
     if any(launched):
         raise AssertionError(f"{what}: window-attention kernels launched "
-                             f"{launched}; CenterPoint's path has none")
+                             f"{launched}; this path has none")
 
 
 def voxel_line(rows):
@@ -1549,44 +1615,7 @@ def phase_cp_fp32_step(dev):
                     {n: (p.detach().cpu(), p.grad.cpu())
                      for n, p in model.named_parameters()}))
     no_kernel_launches("centerpoint fp32 step")
-    lr = schedule(0)
-    (card, card_p), (cpu, cpu_p) = res
-    for k, ref in cpu.items():
-        err = abs(card[k] - ref)
-        tol = CP_STEP_LOSS_RTOL * max(1.0, abs(ref))
-        log(f"centerpoint fp32 step, card vs CPU: {k} {card[k]:.6f} vs "
-            f"{ref:.6f}, err {err:.3e} (tolerance {tol:.3e})")
-        if not err <= tol:
-            raise AssertionError(f"centerpoint fp32 step {k}: {err} > {tol}")
-    largest = max(float(g.abs().max()) for _, g in cpu_p.values())
-    bars = {n: CP_STEP_GRAD_RTOL * float(g.abs().max())
-            + CP_STEP_GRAD_FLOOR * largest for n, (_, g) in cpu_p.items()}
-    grad_err = max((float((card_p[n][1] - g).abs().max()) / bars[n], n)
-                   for n, (_, g) in cpu_p.items())
-    log(f"centerpoint fp32 step, card vs CPU: {len(cpu_p)} clipped "
-        f"gradients (largest |g| {largest:.3e}), worst share of its bar "
-        f"{grad_err[0]:.3e} at {grad_err[1]}")
-    if not grad_err[0] <= 1.0:
-        raise AssertionError(f"centerpoint fp32 step gradients: {grad_err}")
-    near = far = moved = 0.0
-    for n, (p, g) in cpu_p.items():
-        diff = (card_p[n][0] - p).abs()
-        small = g.abs() < bars[n]
-        near = max(near, float(torch.where(small, diff, 0).max()))
-        far = max(far, float(torch.where(small, 0, diff).max()))
-        moved = max(moved, float((p - init[n]).abs().max()))
-    near_tol = CP_STEP_ROUNDING + 2 * lr
-    far_tol = CP_STEP_ROUNDING + 1e-3 * lr
-    log(f"centerpoint fp32 step, card vs CPU: {len(cpu_p)} parameters "
-        f"after the update at lr {lr:.3e} (largest move {moved:.3e}): "
-        f"{near:.3e} where |g| lies within its bar (tolerance "
-        f"{near_tol:.3e}), {far:.3e} elsewhere (tolerance {far_tol:.3e})")
-    if not (near <= near_tol and far <= far_tol):
-        raise AssertionError(f"centerpoint fp32 step parameters: {near}, "
-                             f"{far}")
-    if not moved > 0.5 * lr:
-        raise AssertionError(f"centerpoint fp32 step: no parameter moved by "
-                             f"half of lr {lr}: {moved}")
+    check_step_card_vs_cpu("centerpoint fp32 step", res, init, schedule(0))
 
 
 def phase_cp_eval(dev, frames_dir, work):
@@ -1654,6 +1683,404 @@ def phase_cp_eval(dev, frames_dir, work):
                 f"{statistics.median(times):.3f} ms/frame (median; "
                 f"{[round(x, 3) for x in times]}), window-attention "
                 f"launches 0; {shown}; card {card_info()}")
+    finally:
+        detector_eval.make_predict_fn = make
+
+
+def fsd_model(family, dtype, clustering, device):
+    """A full-width FSD-family model of the training CLI with seeded random
+    weights; ``clustering`` False: FSDv2."""
+    if clustering:
+        return bench.build_frame_detector(family, dtype, device, seed=0)
+    cfg = dataclasses.replace(train_cli.fsd_train_config(dtype=dtype),
+                              use_clustering=False)
+    return FSD(cfg, device=device,
+               generator=torch.Generator().manual_seed(0)).eval()
+
+
+def budget_line(rows):
+    """The FSD budgets' counts as ``occupied/budget``."""
+    unet = ", ".join(f"level {r['level']} {r['occupied']}/{r['budget']}"
+                     for r in rows.pop("unet"))
+    rest = "; ".join(
+        f"{k}: " + (", ".join(f"{n} {a}/{b}" for n, (a, b) in v.items())
+                    if isinstance(v, dict) else f"{v[0]}/{v[1]}")
+        for k, v in rows.items())
+    return f"UNet voxels {unet}; {rest}"
+
+
+def phase_fsd(dev):
+    """Full-width FSD (float32 and bf16), FSDv2 and two-stage FSD inference
+    on the dense and the sparse synthetic frame: predict shapes, finite
+    where valid, the median ms per frame, the peak memory, the budgets'
+    counts; 0 window-attention launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    for name, family, dtype, clustering in FSD_VARIANTS:
+        model = fsd_model(family, dtype, clustering, dev)
+        predict = make_predict_fn(model, family)
+        n_slots = model.cfg.fsd.max_clusters if family == "fsd2" \
+            else model.cfg.max_clusters
+        frames = {"dense": bench.frame_tensors(model.cfg, dev, 150000, 0),
+                  "sparse": bench.frame_tensors(model.cfg, dev, 20000, 1)}
+        for pts, msk in frames.values():
+            predict(pts, msk)                     # warm-up
+        torch.cuda.synchronize()
+        wa.LAUNCHES.clear()
+        wa.BWD_LAUNCHES.clear()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for frame, (pts, msk) in frames.items():
+            boxes, scores, labels, valid = predict(pts, msk)
+            shapes = [tuple(x.shape) for x in (boxes, scores, labels,
+                                               valid)]
+            if shapes != [(n_slots, 7), (n_slots,), (n_slots,),
+                          (n_slots,)] or not (
+                    torch.isfinite(boxes[valid]).all()
+                    and torch.isfinite(scores).all()):
+                raise AssertionError(f"{name} predict: shapes {shapes} or "
+                                     f"values not finite")
+            times = bench.time_frames(predict, pts, msk, FSD_TIMED_FRAMES,
+                                      warmup=0)
+            log(f"{name} frame {frame}: predict "
+                f"{statistics.median(times):.3f} ms/frame (median of "
+                f"{FSD_TIMED_FRAMES}: {[round(t, 3) for t in times]}), "
+                f"{int(valid.sum())} valid of {n_slots} slots, "
+                f"{int((valid & (scores > 0.1)).sum())} over 0.1")
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        no_kernel_launches(f"{name} inference")
+        for frame, (pts, msk) in frames.items():
+            log(f"{name} frame {frame}: budgets (occupied/budget) "
+                f"{budget_line(bench.budgets(model, pts, msk)['budgets'])}")
+        log(f"{name} inference: peak memory {peak:.3f} GiB, "
+            f"window-attention launches 0; card {card_info()}")
+
+
+def compare_fsd(what, got, ref, keys, rtol=FSD_CPU_RTOL):
+    for key in keys:
+        g = got[key].float().cpu()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: {key} not finite")
+        mag = ref[key].abs().max().item()
+        err = (g - ref[key].float()).abs().max().item()
+        tol = rtol * max(1.0, mag)
+        log(f"{what}: {key} max abs err {err:.3e} (tolerance {tol:.3e}; "
+            f"magnitude {mag:.3f})")
+        if not err <= tol:
+            raise AssertionError(f"{what} {key}: {err} > {tol}")
+
+
+def cluster_slots(grouping, n):
+    """The cluster slots that hold a point under ``grouping``."""
+    lab = grouping.fg_label.reshape(-1)
+    return torch.bincount(lab[lab >= 0], minlength=n)[:n] > 0
+
+
+def card_selection(model, points, mask):
+    """The card model's grouping and pooled points on a frame."""
+    seg_logits, votes, pv, _ = model.stage1.segment(points, mask)
+    grouping = model.stage1.group(points, seg_logits, votes, pv)
+    out1 = model.stage1(points, mask, grouping)
+    return grouping, model.select_points(points, mask, out1["boxes"])
+
+
+def to_cpu(grouping, selection):
+    return (Grouping(*(t.cpu() for t in grouping)),
+            tuple(t.cpu() for t in selection))
+
+
+def phase_fsd_card_vs_cpu(dev):
+    """One dense frame, full width, float32, TF32 off, same weights: the
+    segmentation at ``FSD_CPU_RTOL``; the grouping (slots that differ,
+    printed); the cluster forward and the two-stage outputs, both devices
+    fed the card's grouping and pooled points, at ``FSD_CPU_RTOL``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = bench.build_frame_detector("fsd2", None, dev, seed=0)
+    cpu = bench.build_frame_detector("fsd2", None, "cpu", seed=0)
+    pts, msk = bench.frame_tensors(card.cfg, dev, 150000, seed=0)
+    n = card.cfg.fsd.max_clusters
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    with torch.inference_mode():
+        seg_c = card.stage1.segment(pts, msk)
+        seg_p = cpu.stage1.segment(pts.cpu(), msk.cpu())
+        compare_fsd("fsd segmentation fp32, card vs CPU",
+                    dict(seg_logits=seg_c[0], votes=seg_c[1]),
+                    dict(seg_logits=seg_p[0], votes=seg_p[1]),
+                    ("seg_logits", "votes"))
+        if not torch.equal(seg_c[2].cpu(), seg_p[2]):
+            raise AssertionError("fsd point validity differs")
+        g_card = card.stage1.group(pts, *seg_c[:3])
+        g_cpu = cpu.stage1.group(pts.cpu(), *seg_p[:3])
+        diff = {k: int((a.cpu() != b).sum()) for k, a, b in zip(
+            g_card._fields, g_card[:2], g_cpu[:2])}
+        diff["cluster_valid"] = int((cluster_slots(g_card, n).cpu()
+                                     != cluster_slots(g_cpu, n)).sum())
+        log(f"fsd grouping fp32, card vs CPU, each on its own segmentation: "
+            f"slots that differ {diff} (of {g_card.fg_idx.numel()} "
+            f"foreground slots and {n} clusters; "
+            f"{int(cluster_slots(g_card, n).sum())} clusters on the card)")
+
+        grouping, selection = card_selection(card, pts, msk)
+        g_p, sel_p = to_cpu(grouping, selection)
+        out_c = card(pts, msk, grouping, selection)
+        out_p = cpu(pts.cpu(), msk.cpu(), g_p, sel_p)
+        if not torch.equal(out_c["cluster_valid"].cpu(),
+                           out_p["cluster_valid"]):
+            raise AssertionError("fsd cluster validity differs")
+        compare_fsd("fsd cluster forward fp32 from the card's grouping, "
+                    "card vs CPU", out_c, out_p, FSD_CLUSTER_KEYS)
+        compare_fsd("fsd cluster forward fp32 from the card's grouping, "
+                    "card vs CPU", out_c, out_p, FSD_BOX_KEYS, FSD_BOX_RTOL)
+        own = cpu.select_points(pts.cpu(), msk.cpu(), out_p["boxes"])
+        moved = int((own[1] != sel_p[1]).any(-1).sum())
+        if not torch.equal(out_c["roi_nonempty"].cpu(),
+                           out_p["roi_nonempty"]):
+            raise AssertionError("fsd2 non-empty RoIs differ")
+        compare_fsd("fsd2 stage 2 fp32 from the card's grouping and pooled "
+                    "points, card vs CPU", out_c, out_p, FSD2_KEYS)
+        compare_fsd("fsd2 stage 2 fp32 from the card's grouping and pooled "
+                    "points, card vs CPU", out_c, out_p, ("refined_boxes",),
+                    FSD_BOX_RTOL)
+        log(f"fsd2: {int(out_c['roi_nonempty'].sum())} non-empty RoIs; "
+            f"the CPU's own pooling from its own proposals differs from "
+            f"the card's in {moved} RoIs")
+    no_kernel_launches("fsd card vs CPU")
+
+
+def phase_fsd_training(dev, frames_dir, work):
+    """``tools/train.py fsd`` and ``fsd2``'s ``main`` at full width on the
+    SST training phase's 3 frames: 4 float32 steps each, finite losses,
+    every parameter moved but regression branches without positives
+    (``FSD_REGRESSION``), ms/step from the third, peak memory."""
+    infos = os.path.join(frames_dir, "infos.pkl")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for family in ("fsd", "fsd2"):
+        stamps = []
+
+        def hook(step, metrics):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        out = os.path.join(work, family)
+        torch.cuda.reset_peak_memory_stats(dev)
+        wa.LAUNCHES.clear()
+        wa.BWD_LAUNCHES.clear()
+        t0 = time.perf_counter()
+        done = train_cli.main([
+            family, "--infos", infos, "--data-root", frames_dir,
+            "--total-steps", str(FSD_TRAIN_STEPS), "--log-interval", "1",
+            "--work-dir", out, "--device", "cuda", "--seed", "0"],
+            hooks=[hook])
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        no_kernel_launches(f"{family} training")
+        if done != FSD_TRAIN_STEPS or len(stamps) != FSD_TRAIN_STEPS:
+            raise AssertionError(f"{family} training ran {len(stamps)} "
+                                 f"steps")
+        rows = [json.loads(line) for line in
+                open(os.path.join(out, "metrics.jsonl"))]
+        keys = ("loss", "loss_seg", "loss_vote", "loss_cls", "grad_norm") + (
+            ("loss_cls2", "loss_reg2", "loss_corner2") if family == "fsd2"
+            else ())
+        if [r["step"] for r in rows] != list(
+                range(1, FSD_TRAIN_STEPS + 1)) or not all(
+                abs(r[k]) < float("inf") for r in rows for k in keys):
+            raise AssertionError(f"{family} training metrics {rows}")
+        for r in rows:
+            log(f"{family} training step " + " ".join(
+                f"{k}={r[k]}" for k in ("step",) + keys
+                + ("num_pos_clusters", "frames_per_sec") if k in r))
+        trained = torch.load(os.path.join(out, "ckpt",
+                                          f"step_{FSD_TRAIN_STEPS}.pt"),
+                             map_location="cpu", weights_only=True)["model"]
+        init = train_cli.build_detector(
+            family, device="cpu",
+            generator=torch.Generator().manual_seed(0)).state_dict()
+        same = sorted(n for n, p in init.items()
+                      if torch.equal(p, trained[n]))
+        if not all(any(r in n for r in FSD_REGRESSION)
+                   and (n.endswith("bias") or "LayerNorm" in n)
+                   for n in same):
+            raise AssertionError(f"{family} parameters that did not move: "
+                                 f"{same}")
+        times = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+        timed = times[TRAIN_TIMED_FROM - 1:]
+        log(f"{family} training: {FSD_TRAIN_STEPS} float32 steps at full "
+            f"width through the CLI, {statistics.median(timed):.3f} ms/step "
+            f"(median of steps {TRAIN_TIMED_FROM}-{FSD_TRAIN_STEPS}; all "
+            f"{[round(x, 3) for x in times]}), peak memory {peak:.3f} GiB, "
+            f"window-attention launches 0, {len(init) - len(same)} of "
+            f"{len(init)} parameter tensors moved (unmoved, regression "
+            f"branches without positives: {same}); card {card_info()}")
+
+
+def phase_fsd2_fp32_step(dev):
+    """One float32 ``fsd2`` training step (TF32 off, lr ``CP_STEP_LR``) of
+    one dense frame at full width on the card and on the CPU from the same
+    weights, both fed the card's grouping and pooled points: the loss dict,
+    every clipped gradient and every parameter after the update, at
+    CenterPoint's bars."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = bench.build_frame_detector("fsd2", None, dev, seed=0)
+    batch = bench.train_batch(card.cfg, dev, 150000, seed=0)
+    with torch.no_grad():
+        fixed = card_selection(card, batch.points[0], batch.points_mask[0])
+    res = []
+    for where, (grouping, selection) in ((dev, fixed),
+                                         ("cpu", to_cpu(*fixed))):
+        model = bench.build_frame_detector("fsd2", None, where,
+                                           seed=0).train()
+
+        def loss(points, mask, *gt, model=model, grouping=grouping,
+                 selection=selection):
+            return two_stage_loss(model(points, mask, grouping, selection),
+                                  points, *gt)
+
+        model.loss = loss
+        init = {n: p.detach().cpu().clone()
+                for n, p in model.named_parameters()}
+        optimizer, schedule = make_optimizer(model.named_parameters(),
+                                             CP_STEP_LR, 100)
+        metrics = make_detector_train_step(model, optimizer, schedule)(
+            0, batch.to(where))
+        res.append(({k: float(v) for k, v in metrics.items()},
+                    {n: (p.detach().cpu(), p.grad.cpu())
+                     for n, p in model.named_parameters()}))
+    no_kernel_launches("fsd2 fp32 step")
+    check_step_card_vs_cpu("fsd2 fp32 step", res, init, schedule(0))
+
+
+def check_step_card_vs_cpu(what, res, init, lr):
+    """The losses, the clipped gradients and the parameters after AdamW's
+    first step of a card run against a CPU run, at ``CP_STEP_*``."""
+    (card, card_p), (cpu, cpu_p) = res
+    for k, ref in cpu.items():
+        err = abs(card[k] - ref)
+        tol = CP_STEP_LOSS_RTOL * max(1.0, abs(ref))
+        log(f"{what}, card vs CPU: {k} {card[k]:.6f} vs {ref:.6f}, err "
+            f"{err:.3e} (tolerance {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"{what} {k}: {err} > {tol}")
+    largest = max(float(g.abs().max()) for _, g in cpu_p.values())
+    bars = {n: CP_STEP_GRAD_RTOL * float(g.abs().max())
+            + CP_STEP_GRAD_FLOOR * largest for n, (_, g) in cpu_p.items()}
+    grad_err = max((float((card_p[n][1] - g).abs().max()) / bars[n], n)
+                   for n, (_, g) in cpu_p.items())
+    log(f"{what}, card vs CPU: {len(cpu_p)} clipped gradients (largest "
+        f"|g| {largest:.3e}), worst share of its bar {grad_err[0]:.3e} at "
+        f"{grad_err[1]}")
+    if not grad_err[0] <= 1.0:
+        raise AssertionError(f"{what} gradients: {grad_err}")
+    near = far = moved = 0.0
+    for n, (p, g) in cpu_p.items():
+        diff = (card_p[n][0] - p).abs()
+        small = g.abs() < bars[n]
+        near = max(near, float(torch.where(small, diff, 0).max()))
+        far = max(far, float(torch.where(small, 0, diff).max()))
+        moved = max(moved, float((p - init[n]).abs().max()))
+    near_tol = CP_STEP_ROUNDING + 2 * lr
+    far_tol = CP_STEP_ROUNDING + 1e-3 * lr
+    log(f"{what}, card vs CPU: {len(cpu_p)} parameters after the update at "
+        f"lr {lr:.3e} (largest move {moved:.3e}): {near:.3e} where |g| lies "
+        f"within its bar (tolerance {near_tol:.3e}), {far:.3e} elsewhere "
+        f"(tolerance {far_tol:.3e})")
+    if not (near <= near_tol and far <= far_tol):
+        raise AssertionError(f"{what} parameters: {near}, {far}")
+    if not moved > 0.5 * lr:
+        raise AssertionError(f"{what}: no parameter moved by half of lr "
+                             f"{lr}: {moved}")
+
+
+def lift_fsd_checkpoint(work, family):
+    """The training checkpoint of ``family`` with ``FSD_EVAL_LIFT`` added
+    to the seg head's class-logit biases and the score biases; returns its
+    directory."""
+    ckpt = CheckpointManager(os.path.join(work, family, "ckpt"))
+    state = torch.load(ckpt.path(ckpt.steps()[-1]), map_location="cpu",
+                       weights_only=True)
+    model = state["model"]
+    pre = "stage1." if family == "fsd2" else ""
+    ncls = len(train_cli.fsd_train_config().class_names)
+    seg = sorted(k for k in model if k.startswith(pre + "seg_head.Dense_")
+                 and k.endswith(".bias"))[-1]
+    model[seg][:ncls] += FSD_EVAL_LIFT
+    scores = ([k for k in model if k.startswith("conv_cls.Dense_")
+               and k.endswith(".bias")][-1:] if family == "fsd2" else
+              [k for k in model if "_score.Dense_" in k and k.endswith(
+                  f"Dense_{train_cli.fsd_train_config().head_layers}.bias")])
+    for k in scores:
+        model[k] += FSD_EVAL_LIFT
+    lifted = os.path.join(work, family, "ckpt_eval")
+    os.makedirs(lifted, exist_ok=True)
+    torch.save(state, os.path.join(lifted, "step_1.pt"))
+    return lifted, [seg] + scores
+
+
+def phase_fsd_eval(dev, frames_dir, work):
+    """``tools/test.py fsd`` and ``fsd2`` with ``--metric kitti`` and
+    ``--metric waymo`` on the training phase's checkpoints (biases lifted
+    by ``FSD_EVAL_LIFT``) and frames: the predict's ms per frame under the
+    CLI; 0 window-attention launches."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    infos = os.path.join(frames_dir, "infos.pkl")
+    n = len(FrameDataset(infos, frames_dir))
+    make = detector_eval.make_predict_fn
+    try:
+        for family in ("fsd", "fsd2"):
+            lifted, keys = lift_fsd_checkpoint(work, family)
+            log(f"{family} evaluation: {FSD_EVAL_LIFT} added to {keys}")
+            for metric in ("kitti", "waymo"):
+                times = []
+
+                def timed_make(model, fam):
+                    fn = make(model, fam)
+
+                    def call(points, mask):
+                        sync()
+                        t = time.perf_counter()
+                        out = fn(points, mask)
+                        sync()
+                        times.append((time.perf_counter() - t) * 1e3)
+                        return out
+                    return call
+
+                detector_eval.make_predict_fn = timed_make
+                wa.LAUNCHES.clear()
+                wa.BWD_LAUNCHES.clear()
+                t = time.perf_counter()
+                out_dir = os.path.join(work, family, metric)
+                with contextlib.redirect_stdout(io.StringIO()):
+                    metrics = test_cli.main([
+                        family, "--infos", infos, "--data-root",
+                        frames_dir, "--ckpt-dir", lifted, "--metric",
+                        metric, "--out-dir", out_dir, "--device", "cuda"])
+                wall = time.perf_counter() - t
+                no_kernel_launches(f"{family} eval {metric}")
+                if len(times) != n:
+                    raise AssertionError(f"{family} eval {metric}: "
+                                         f"{len(times)} predicts for {n} "
+                                         f"frames")
+                if metric == "kitti":
+                    shown = {k: v for k, v in metrics.items() if "_3d_" in k}
+                    if len(shown) != 3:
+                        raise AssertionError(f"{family} kitti {metrics}")
+                else:
+                    shown = {k: v for k, v in metrics.items()
+                             if k.startswith("OBJECT_TYPE_TYPE_VEHICLE")}
+                    preds = read_bin(os.path.join(out_dir, "pred.bin"))
+                    if not shown or not preds:
+                        raise AssertionError(
+                            f"{family} waymo: {len(preds)} predictions, "
+                            f"metrics {metrics}")
+                    shown["predictions"] = len(preds)
+                log(f"tools/test.py {family} --metric {metric}: {n} frames, "
+                    f"wall {wall:.3f} s, predict "
+                    f"{statistics.median(times):.3f} ms/frame (median; "
+                    f"{[round(x, 3) for x in times]}), window-attention "
+                    f"launches 0; {shown}; card {card_info()}")
     finally:
         detector_eval.make_predict_fn = make
 
@@ -1732,6 +2159,18 @@ def main():
                 ("centerpoint fp32 step", lambda: phase_cp_fp32_step(dev)),
                 ("centerpoint evaluation",
                  lambda: phase_cp_eval(dev, cp_frames, cp_work))):
+            t = time.perf_counter()
+            run()
+            log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+        fsd_work = os.path.join(keep, "fsd")
+        for name, run in (
+                ("fsd inference", lambda: phase_fsd(dev)),
+                ("fsd card vs CPU", lambda: phase_fsd_card_vs_cpu(dev)),
+                ("fsd training",
+                 lambda: phase_fsd_training(dev, cp_frames, fsd_work)),
+                ("fsd2 fp32 step", lambda: phase_fsd2_fp32_step(dev)),
+                ("fsd evaluation",
+                 lambda: phase_fsd_eval(dev, cp_frames, fsd_work))):
             t = time.perf_counter()
             run()
             log(f"phase {name}: {time.perf_counter() - t:.1f} s")

@@ -1,6 +1,6 @@
 """Weight converter: a flax params tree of the JAX package's ``SSTDetector``,
-``OcOccNetWithLoss`` or ``DynamicCenterPoint`` to the port's
-``state_dict``, and back.
+``OcOccNetWithLoss``, ``DynamicCenterPoint``, ``FSD`` or ``TwoStageFSD``
+to the port's ``state_dict``, and back.
 
 The input is a nested dict of numpy arrays (``jax.device_get`` of the
 params, or any tree read from disk); this module needs no JAX. Conversions:
@@ -10,13 +10,14 @@ upsampling blocks, ``ConvTranspose`` with kernel = stride) HWIO -> torch's
 ``ConvTranspose2d`` ``[in, out, kh, kw]`` with its taps mirrored (flax
 scatters tap (i, j) where torch scatters (kh-1-i, kw-1-j)); sparse-conv
 kernels ``[K, Cin, Cout]`` (``kernel``, ``conv2_kernel``, ``down{i}_kernel``,
-``conv_out_kernel``) stay as they are, under their own names; LayerNorm /
+``conv_out_kernel``, and FSD's UNet's ``unet/down{i}``) stay as they
+are, under their own names; LayerNorm /
 GroupNorm ``scale`` -> ``weight``; ``bias`` stays. Module names:
 ``backbone/block{i}_shift{s}`` -> ``backbone.layers.{2i+s}``, ``dil{i}`` ->
 ``neck_convs.{i}``, and at the top level (SST's neck) ``GroupNorm_{i}`` ->
 ``neck_norms.{i}``; every other name (every OcOccNet and CenterPoint name
-among them, CenterPoint's nested ``GroupNorm_{i}`` too) is the flax path
-joined with dots.
+among them, CenterPoint's nested ``GroupNorm_{i}`` too, and every FSD
+name) is the flax path joined with dots.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ _TOP_RENAMES = _RENAMES + (
     (re.compile(r"^GroupNorm_(\d+)$"), lambda m: f"neck_norms.{m[1]}"),
 )
 _DEBLOCK = re.compile(r"^deblock\d+$")
+# FSD's UNet holds its strided kernels as bare parameters
+_UNET_DOWN = re.compile(r"^down\d+$")
 _INVERSE = (
     (re.compile(r"^layers\.(\d+)$"),
      lambda m: f"block{int(m[1]) // 2}_shift{int(m[1]) % 2}"),
@@ -75,7 +78,9 @@ def flax_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
         *mods, name = path
         key = ".".join(_rename(m, _TOP_RENAMES if i == 0 else _RENAMES)
                        for i, m in enumerate(mods))
-        if (name == "kernel" or name.endswith("_kernel")) and a.ndim == 3:
+        if (name == "kernel" or name.endswith("_kernel")
+                or (mods and mods[-1] == "unet" and _UNET_DOWN.match(name))) \
+                and a.ndim == 3:
             pass                      # sparse-conv kernel [K, Cin, Cout]
         elif name == "kernel":
             if a.ndim == 2:

@@ -1,5 +1,5 @@
 """3D box geometry (counterpart of the JAX package's ``core/boxes.py``,
-the parts the OcOccNet forward and losses use).
+the parts the OcOccNet forward and losses and FSD use).
 
 Boxes are ``[..., 7]``: bottom centre (x, y, z), sizes (w, l, h) along
 (x, y, z), yaw about z. The box-local frame is
@@ -40,6 +40,18 @@ def local_to_global(local: torch.Tensor, boxes: torch.Tensor
     """Inverse of :func:`box_local_coords`."""
     ctr = gravity_center(boxes)
     return rotate_z(local, boxes[..., None, 6]) + ctr[..., None, :]
+
+
+def points_in_boxes(points: torch.Tensor, boxes: torch.Tensor,
+                    extra_wlh=(0.0, 0.0, 0.0)) -> torch.Tensor:
+    """Boolean ``[..., P]``: whether each of ``points[..., P, 3]`` lies in
+    ``boxes[..., 7]`` (broadcast against the points' leading dims), each
+    size enlarged by ``extra_wlh`` in total."""
+    local = box_local_coords(points, boxes)
+    extra = torch.as_tensor(extra_wlh, dtype=points.dtype,
+                            device=points.device)
+    half = 0.5 * (boxes[..., None, 3:6] + extra)
+    return (local.abs() <= half).all(-1)
 
 
 def rotate_z_2d(xy: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:

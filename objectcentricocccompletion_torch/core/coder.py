@@ -1,6 +1,6 @@
-"""Delta-XYZWLHR box coder and the canonical RoI-frame targets
-(counterpart of the JAX package's ``core/coder.py``). Boxes are ``[..., 7]``
-(x, y, z_bottom, w, l, h, yaw)."""
+"""Delta-XYZWLHR box coder, the canonical RoI-frame targets and FSD's
+base-point coder (counterpart of the JAX package's ``core/coder.py``).
+Boxes are ``[..., 7]`` (x, y, z_bottom, w, l, h, yaw)."""
 from __future__ import annotations
 
 import math
@@ -83,3 +83,29 @@ def decode_from_rois(rois: torch.Tensor, deltas: torch.Tensor
     ctr = ctr + rois[..., 0:3]
     yaw = local[..., 6:7] + rois[..., 6:7]
     return torch.cat([ctr, local[..., 3:6], yaw], -1)
+
+
+POINT_EPS = 1e-6
+
+
+def point_encode(boxes: torch.Tensor, base_points: torch.Tensor
+                 ) -> torch.Tensor:
+    """FSD's regression target of a box against its cluster's base point:
+    [delta xyz, log sizes, sin yaw, cos yaw] (8 values)."""
+    delta = boxes[..., :3] - base_points
+    log_dims = torch.log(boxes[..., 3:6] + POINT_EPS)
+    yaw = boxes[..., 6:7]
+    return torch.cat([delta, log_dims, torch.sin(yaw), torch.cos(yaw)], -1)
+
+
+def point_decode(reg: torch.Tensor, base_points: torch.Tensor
+                 ) -> torch.Tensor:
+    """Inverse of :func:`point_encode`. The yaw's atan2 reads (0, 1) where
+    sin and cos are both 0, so its gradient stays finite there."""
+    xyz = reg[..., :3] + base_points
+    dims = torch.exp(reg[..., 3:6]) - POINT_EPS
+    sn, cs = reg[..., 6], reg[..., 7]
+    ok = sn * sn + cs * cs > 1e-12
+    yaw = torch.where(ok, torch.atan2(torch.where(ok, sn, 0.0),
+                                      torch.where(ok, cs, 1.0)), 0.0)
+    return torch.cat([xyz, dims, yaw[..., None]], -1)

@@ -1,5 +1,6 @@
 """Detector evaluation (counterpart of the JAX package's
-``evalx/detector_eval.py``; the SST and CenterPoint families so far):
+``evalx/detector_eval.py``; the SST, CenterPoint, FSD and two-stage FSD
+families so far):
 prediction over the val frames on the model's device, score filtering and
 per-class rotated NMS, then KITTI-protocol AP or the Waymo ``.bin`` files
 and the native mAP / mAPH.
@@ -49,15 +50,31 @@ def make_predict_fn(model, family: str):
     """``(points, mask) -> (boxes [K, 7] (CenterPoint: [K, 9], velocity
     last), scores [K], labels [K], valid [K])``, fixed output size, on the
     model's device. The model holds its own weights (the JAX version takes
-    them as an argument)."""
-    if family not in ("sst", "centerpoint"):
-        raise ValueError(f"detector family {family!r} is not ported yet")
-
-    @torch.inference_mode()
-    def fn(points: torch.Tensor, mask: torch.Tensor):
-        return model.predict(points, mask)
-
-    return fn
+    them as an argument). ``fsd``: one box per cluster slot, scored by its
+    best task and decoded with that task's regression; ``fsd2``: the
+    refined boxes, scored by stage 2, labelled by stage 1's best task."""
+    if family in ("sst", "centerpoint"):
+        def fn(points, mask):
+            return model.predict(points, mask)
+    elif family == "fsd":
+        def fn(points, mask):
+            out = model(points, mask)
+            labels = out["cls"].argmax(-1)
+            boxes = out["boxes_tasks"][
+                torch.arange(labels.shape[0], device=labels.device), labels]
+            return (boxes, torch.sigmoid(out["cls"].amax(-1)), labels,
+                    out["cluster_valid"])
+    elif family == "fsd2":
+        def fn(points, mask):
+            out = model(points, mask)
+            return (out["refined_boxes"], torch.sigmoid(out["cls2"]),
+                    out["cls"].argmax(-1), out["roi_nonempty"])
+    elif family == "votenet":
+        raise NotImplementedError(
+            "the 'votenet' detector family is not ported yet")
+    else:
+        raise ValueError(f"unknown detector family: {family!r}")
+    return torch.inference_mode()(fn)
 
 
 def make_sequential_predict_fn(model):

@@ -18,7 +18,7 @@ from torch import nn
 from ..ops import voxelize as vx
 from ..utils.device import resolve_device
 from . import centerpoint_head as cph
-from .layers import init_flax_like_
+from .layers import he_normal_, init_flax_like_
 from .second import SECOND, SECONDFPN
 from .sparse_encoder import SparseEncoder
 from .sst import POINT_DIM
@@ -53,16 +53,6 @@ def tiny_centerpoint_config() -> CenterPointConfig:
         voxel_size=(0.4, 0.4, 0.3), pc_range=(-6.4, -6.4, -1.2, 6.4, 6.4,
                                               8.4),
         max_voxels=2048, max_points=4096, vfe_channels=(8, 8))
-
-
-def _he_normal_(p: torch.Tensor, generator: torch.Generator) -> None:
-    """flax's ``he_normal`` for a ``[K, Cin, Cout]`` kernel: truncated
-    normal of variance 2 / (K * Cin)."""
-    std = (2.0 / (p.shape[0] * p.shape[1])) ** 0.5 / 0.87962566103423978
-    w = torch.empty(p.shape)
-    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
-    with torch.no_grad():
-        p.copy_(w)
 
 
 class DynamicCenterPoint(nn.Module):
@@ -112,7 +102,7 @@ class DynamicCenterPoint(nn.Module):
                         m.weight.copy_(w)
             for name, p in self.encoder.named_parameters():
                 if name.endswith("kernel"):
-                    _he_normal_(p, generator)
+                    he_normal_(p, generator)
             self.head.task0.reset_heatmap_bias()
         self.to(dev)
 

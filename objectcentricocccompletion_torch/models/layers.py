@@ -72,6 +72,16 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int,
                           generator=generator)
 
 
+def he_normal_(p: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's ``he_normal`` for a ``[K, Cin, Cout]`` sparse-conv kernel:
+    truncated normal of variance 2 / (K * Cin)."""
+    std = (2.0 / (p.shape[0] * p.shape[1])) ** 0.5 / 0.87962566103423978
+    w = torch.empty(p.shape)
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+    with torch.no_grad():
+        p.copy_(w)
+
+
 def init_flax_like_(module: nn.Module, generator: torch.Generator) -> None:
     """Re-initialise every Linear and Conv2d weight of ``module`` as flax
     would (lecun normal, biases zero) from ``generator``; norms get ones and
@@ -188,14 +198,15 @@ def dropout(x: torch.Tensor, rate: float, keys: DropoutKeys | None
 
 class Mlp(nn.Module):
     """``Mlp`` of the JAX package: hidden layers are Dense (no bias) ->
-    one-pass LayerNorm -> act -> dropout; with ``is_head`` the last layer
-    is a biased Dense. Dense layers run in ``dtype``; parameters stay
-    float32. Module names are the flax ones (``Dense_{i}``,
-    ``LayerNorm_{i}``)."""
+    one-pass LayerNorm (epsilon ``ln_eps``) -> act -> dropout; with
+    ``is_head`` the last layer is a biased Dense. Dense layers run in
+    ``dtype``; parameters stay float32. Module names are the flax ones
+    (``Dense_{i}``, ``LayerNorm_{i}``)."""
 
     def __init__(self, in_dim: int, hidden_dims: Sequence[int],
                  is_head: bool = False, act: str = "gelu",
-                 dtype: torch.dtype = torch.float32, dropout: float = 0.0):
+                 dtype: torch.dtype = torch.float32, dropout: float = 0.0,
+                 ln_eps: float = LN_EPS):
         super().__init__()
         self.dtype = dtype
         self.dropout = dropout
@@ -207,7 +218,7 @@ class Mlp(nn.Module):
             last_head = is_head and i == self.num_layers - 1
             self.add_module(f"Dense_{i}", nn.Linear(fin, c, bias=last_head))
             if not last_head:
-                self.add_module(f"LayerNorm_{i}", nn.LayerNorm(c, eps=LN_EPS))
+                self.add_module(f"LayerNorm_{i}", nn.LayerNorm(c, eps=ln_eps))
             fin = c
 
     def forward(self, x: torch.Tensor, keys: DropoutKeys | None = None

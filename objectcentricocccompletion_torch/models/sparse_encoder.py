@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from ..ops import sparse_conv as sc
-from .layers import LN_EPS, layer_norm
+from .layers import LN_EPS, dense, layer_norm
 
 OFFSETS_27 = sc.kernel_offsets(3)
 STRIDED_OFFSETS = sc.strided_conv_offsets(3, 1)
@@ -60,25 +60,33 @@ def _norm_act(norm: nn.LayerNorm, x: torch.Tensor, valid: torch.Tensor
 
 
 class SubMConv(nn.Module):
-    """Submanifold 3^3 convolution -> LayerNorm -> ReLU, masked."""
+    """Submanifold 3^3 convolution -> LayerNorm -> ReLU, masked. The
+    convolution runs in ``dtype`` (its kernel cast to it; float32 by
+    default) and the result leaves in ``dtype``; LayerNorm statistics stay
+    float32."""
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.kernel = _kernel(27, in_channels, out_channels)
         self.LayerNorm_0 = nn.LayerNorm(out_channels, eps=LN_EPS)
 
     def forward(self, feats: torch.Tensor, ctx: GatherCtx) -> torch.Tensor:
-        return _norm_act(self.LayerNorm_0, ctx.conv(feats, self.kernel),
-                         ctx.valid)
+        x = ctx.conv(feats.to(self.dtype), self.kernel)
+        return _norm_act(self.LayerNorm_0, x, ctx.valid).to(self.dtype)
 
 
 class SparseBasicBlock(nn.Module):
     """Residual block of two SubM convs (the reference's
-    ``SparseBasicBlock``); a bias-free ``proj`` where the width changes."""
+    ``SparseBasicBlock``); a bias-free ``proj`` where the width changes.
+    Computes in ``dtype`` as :class:`SubMConv` does."""
 
-    def __init__(self, in_channels: int, channels: int):
+    def __init__(self, in_channels: int, channels: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = SubMConv(in_channels, channels)
+        self.dtype = dtype
+        self.conv1 = SubMConv(in_channels, channels, dtype)
         self.conv2_kernel = _kernel(27, channels, channels)
         self.norm2 = nn.LayerNorm(channels, eps=LN_EPS)
         self.proj = (nn.Linear(in_channels, channels, bias=False)
@@ -87,8 +95,9 @@ class SparseBasicBlock(nn.Module):
     def forward(self, feats: torch.Tensor, ctx: GatherCtx) -> torch.Tensor:
         x = self.conv1(feats, ctx)
         x = layer_norm(self.norm2, ctx.conv(x, self.conv2_kernel))
-        identity = feats if self.proj is None else self.proj(feats)
-        return ctx.mask(torch.relu(x + identity))
+        identity = (feats if self.proj is None
+                    else dense(self.proj, feats, self.dtype))
+        return ctx.mask(torch.relu(x + identity)).to(self.dtype)
 
 
 class SparseEncoder(nn.Module):

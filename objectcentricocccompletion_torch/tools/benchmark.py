@@ -1,6 +1,6 @@
 """Latency benchmark of the port (counterpart of the JAX repository's
-``tools/benchmark.py`` and ``benchmarks/bench_detectors.py``; the ``sst``,
-``ococcnet`` and ``centerpoint`` families so far).
+``tools/benchmark.py`` and ``benchmarks/bench_detectors.py``; every family
+but ``fsdpp`` and ``votenet``, which raise).
 
     python -m objectcentricocccompletion_torch.tools.benchmark sst \\
         --frames 20 --dtype bfloat16
@@ -12,6 +12,8 @@
         --train [--frames 10] [--eval-layout dense] [--dtype float32]
     python -m objectcentricocccompletion_torch.tools.benchmark centerpoint \\
         [--train] [--frames 20] [--num-real 150000]
+    python -m objectcentricocccompletion_torch.tools.benchmark fsd|fsd2 \\
+        [--train] [--frames 20] [--num-real 150000] [--dtype bfloat16]
 
 ``sst`` builds the full-width ``SSTDetector(SSTDetectorConfig())`` with
 weights drawn from a seeded ``torch.Generator`` (no checkpoint is needed). By
@@ -48,6 +50,15 @@ voxels of each stage against its budget (the voxelized input, the
 encoder's three downsampled stages and conv_out), which both packages cut
 silently.
 
+``fsd`` / ``fsd2`` do the same with the training CLI's full-width ``FSD(
+FSDConfig())`` / ``TwoStageFSD(TwoStageFSDConfig())`` (``--dtype`` sets
+the compute dtype, float32 by default): with ``--train`` the step runs
+``fsd_loss`` / ``two_stage_loss``; the budgets line gives the UNet's
+voxels per level against ``max_voxels`` and per class the foreground
+points over ``seg_score_thresh`` against ``max_fg_per_class``, the cluster
+voxels against ``max_cluster_voxels`` and the clusters against
+``max_clusters_per_class``.
+
 ``--profile N`` also traces N more frames (steps; for ``ococcnet``
 batches, predict and decode) with ``torch.profiler``, prints the operators
 that take the most device time, and adds the device's busy time per frame
@@ -69,7 +80,7 @@ from ..configs.ococcnet_config import OcOccNetConfig
 from ..data.synthetic import synth_frame, synthetic_batch
 from ..data.tracklet import TrackletBatch
 from ..evalx.detector_eval import make_predict_fn
-from ..models.centerpoint import CenterPointConfig, DynamicCenterPoint
+from ..models.centerpoint import DynamicCenterPoint
 from ..models.ococcnet import OcOccNetWithLoss, gt_occ_to_roi_frame
 from ..models.sst_detector import SSTDetector, SSTDetectorConfig
 from ..parallel.train import create_train_state, make_train_step
@@ -77,6 +88,7 @@ from ..training.detector_trainer import (FrameBatch, collate_frames,
                                          make_detector_train_step)
 from ..training.optim import make_optimizer
 from ..utils.device import card_info, resolve_device
+from .train import build_detector
 
 
 def sst_config(dtype: str = "bfloat16",
@@ -93,15 +105,16 @@ def build_sst(cfg: SSTDetectorConfig, device="cuda", seed: int = 0
 
 
 def _frame_budget(cfg) -> tuple[int, tuple]:
-    """(point budget, pc_range) of an SST or a CenterPoint config."""
-    c = getattr(cfg, "sst", cfg)
+    """(point budget, pc_range) of an SST, CenterPoint, FSD or two-stage
+    FSD config."""
+    c = getattr(cfg, "sst", None) or getattr(cfg, "fsd", cfg)
     return c.max_points, c.pc_range
 
 
 def frame_tensors(cfg, device, num_real: int = 150000, seed: int = 0
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """A ``synth_frame`` at the (SST or CenterPoint) config's point budget,
-    on ``device``."""
+    """A ``synth_frame`` at the detector config's point budget, on
+    ``device``."""
     points, mask, *_ = synth_frame(*_frame_budget(cfg), num_real=num_real,
                                    seed=seed)
     dev = resolve_device(device)
@@ -262,45 +275,66 @@ def bench_sst_train(steps: int, dtype: str = "bfloat16", device="cuda",
 
 def build_centerpoint(device="cuda", seed: int = 0) -> DynamicCenterPoint:
     """Full-width ``CenterPointConfig()`` with seeded random weights."""
-    gen = torch.Generator().manual_seed(seed)
-    return DynamicCenterPoint(CenterPointConfig(), device=device,
-                              generator=gen).eval()
+    return build_frame_detector("centerpoint", None, device, seed)
 
 
-def bench_centerpoint(frames: int = 20, device="cuda", seed: int = 0,
-                      num_real: int = 150000, profile_n: int = 0) -> dict:
-    """Full-width CenterPoint ``predict`` per frame (median over ``frames``
-    after warm-up), the peak memory over the timed frames and the voxels
-    per stage against their budgets."""
+def build_frame_detector(family: str, dtype: str | None = None,
+                         device="cuda", seed: int = 0):
+    """The full-width ``centerpoint``, ``fsd`` or ``fsd2`` detector of the
+    training CLI (``dtype``: its ``--dtype``) with seeded random
+    weights."""
+    return build_detector(family, dtype=dtype, device=device,
+                          generator=torch.Generator().manual_seed(seed)
+                          ).eval()
+
+
+def budgets(model, points, mask) -> dict:
+    """What the model's static budgets hold before they cut, beside them:
+    CenterPoint's voxels per stage, FSD's UNet voxels per level and per
+    class its foreground points, cluster voxels and clusters."""
+    if isinstance(model, DynamicCenterPoint):
+        return {"voxels": model.voxel_occupancy(points, mask)}
+    return {"budgets": getattr(model, "stage1", model).budget_counts(
+        points, mask)}
+
+
+def bench_detector(family: str = "centerpoint", frames: int = 20,
+                   dtype: str | None = None, device="cuda", seed: int = 0,
+                   num_real: int = 150000, profile_n: int = 0) -> dict:
+    """Full-width ``predict`` of a frame detector (``centerpoint``, ``fsd``,
+    ``fsd2``) per frame (median over ``frames`` after warm-up), the peak
+    memory over the timed frames and the budgets' counts."""
     dev = resolve_device(device)
-    model = build_centerpoint(dev, seed)
+    model = build_frame_detector(family, dtype, dev, seed)
     points, mask = frame_tensors(model.cfg, dev, num_real, seed)
-    predict = make_predict_fn(model, "centerpoint")
+    predict = make_predict_fn(model, family)
     predict(points, mask)
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     times = time_frames(predict, points, mask, frames, warmup=1)
     med = statistics.median(times)
-    res = {"family": "centerpoint", "dtype": "float32", "frames": frames,
+    res = {"family": family, "dtype": dtype or "float32", "frames": frames,
            "num_real_points": num_real, "latency_ms": med,
            "mean_ms": statistics.fmean(times), "fps": 1e3 / med,
            "unit": "frames/sec", "peak_memory_gib": _peak_gib(dev),
-           "voxels": model.voxel_occupancy(points, mask), **_card(dev)}
+           **budgets(model, points, mask), **_card(dev)}
     if profile_n:
         res.update(profile_calls(lambda: predict(points, mask), profile_n,
                                  dev))
     return res
 
 
-def bench_centerpoint_train(steps: int = 10, device="cuda", seed: int = 0,
-                            num_real: int = 150000, profile_n: int = 0,
-                            warmup: int = 2) -> dict:
-    """Full-width CenterPoint training steps (forward, loss, backward, clip,
-    AdamW at the schedule of ``train_detector``'s defaults) on one frame;
-    the median step over ``steps`` after ``warmup``."""
+def bench_detector_train(family: str = "centerpoint", steps: int = 10,
+                         dtype: str | None = None, device="cuda",
+                         seed: int = 0, num_real: int = 150000,
+                         profile_n: int = 0, warmup: int = 2) -> dict:
+    """Full-width training steps of a frame detector (forward, loss,
+    backward, clip, AdamW at the schedule of ``train_detector``'s
+    defaults) on one frame; the median step over ``steps`` after
+    ``warmup``."""
     dev = resolve_device(device)
-    model = build_centerpoint(dev, seed).train()
+    model = build_frame_detector(family, dtype, dev, seed).train()
     batch = train_batch(model.cfg, dev, num_real, seed)
     optimizer, schedule = make_optimizer(
         model.named_parameters(), base_lr=1e-5,
@@ -319,13 +353,12 @@ def bench_centerpoint_train(steps: int = 10, device="cuda", seed: int = 0,
 
     times = time_calls(step, steps, dev, warmup=0)
     med = statistics.median(times)
-    res = {"family": "centerpoint", "mode": "train", "dtype": "float32",
+    res = {"family": family, "mode": "train", "dtype": dtype or "float32",
            "steps": steps, "num_real_points": num_real, "step_ms": med,
            "mean_ms": statistics.fmean(times),
            "metrics": {k: float(v) for k, v in metrics.items()},
            "peak_memory_gib": _peak_gib(dev),
-           "voxels": model.voxel_occupancy(batch.points[0],
-                                           batch.points_mask[0]),
+           **budgets(model, batch.points[0], batch.points_mask[0]),
            **_card(dev)}
     if profile_n:
         res.update(profile_calls(step, profile_n, dev, unit="step"))
@@ -456,7 +489,8 @@ def bench_ococcnet_train(steps: int = 10, dtype: str = "bfloat16",
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
-    p.add_argument("family", choices=["sst", "ococcnet", "centerpoint"])
+    p.add_argument("family", choices=["sst", "ococcnet", "centerpoint",
+                                      "fsd", "fsd2", "fsdpp", "votenet"])
     p.add_argument("--frames", type=int, default=20,
                    help="timed frames (with --train: timed steps; "
                         "ococcnet: timed batches)")
@@ -466,8 +500,9 @@ def main(argv=None) -> None:
                    help="time training steps instead of predict")
     p.add_argument("--dtype", default=None,
                    choices=["bfloat16", "float32"],
-                   help="sst / ococcnet: bfloat16 by default; centerpoint "
-                        "computes in float32 only")
+                   help="sst / ococcnet: bfloat16 by default; fsd / fsd2: "
+                        "float32 by default; centerpoint computes in "
+                        "float32 only")
     p.add_argument("--device", default="cuda")
     p.add_argument("--num-real", type=int, default=150000,
                    help="real points in the synthetic frame")
@@ -475,12 +510,16 @@ def main(argv=None) -> None:
                    help="also trace N frames (or steps) with "
                         "torch.profiler")
     args = p.parse_args(argv)
-    if args.family == "centerpoint":
-        if args.dtype not in (None, "float32"):
+    if args.family in ("fsdpp", "votenet"):
+        raise NotImplementedError(
+            f"the {args.family!r} family is not ported yet")
+    if args.family in ("centerpoint", "fsd", "fsd2"):
+        if args.family == "centerpoint" and args.dtype not in (None,
+                                                               "float32"):
             raise SystemExit("centerpoint computes in float32 end to end")
-        bench = bench_centerpoint_train if args.train else bench_centerpoint
-        print(json.dumps(bench(args.frames, args.device,
-                               num_real=args.num_real,
+        bench = bench_detector_train if args.train else bench_detector
+        print(json.dumps(bench(args.family, args.frames, args.dtype,
+                               args.device, num_real=args.num_real,
                                profile_n=args.profile)))
         return
     args.dtype = args.dtype or "bfloat16"

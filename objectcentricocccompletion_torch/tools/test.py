@@ -1,6 +1,5 @@
 """Evaluation CLI of the port (counterpart of the JAX repository's
-``tools/test.py``; the ``ococcnet``, ``ctrl``, ``sst`` and ``centerpoint``
-families so far).
+``tools/test.py``; every family but ``fsdpp`` and ``votenet``).
 
     python -m objectcentricocccompletion_torch.tools.test ococcnet \\
         --proposals data/proposals.pkl --gt-candidates data/cands.pkl \\
@@ -9,7 +8,8 @@ families so far).
         [--ctrl-class veh] [--occ-baseline] [--tta] [--tune-steps N] \\
         [--no-occ] [--max-tracklets N] [--eval-layout dense|packed] \\
         [--tiny] [--device cuda]
-    python -m objectcentricocccompletion_torch.tools.test sst|centerpoint \\
+    python -m objectcentricocccompletion_torch.tools.test \\
+        sst|centerpoint|fsd|fsd2 \\
         --infos data/infos.pkl --data-root data \\
         --ckpt-dir work_dirs/sst/ckpt [--metric kitti|waymo] \\
         [--score-thresh 0.1] [--max-frames N] [--out-dir DIR] [--tiny] \\
@@ -21,15 +21,15 @@ over the test tracklets (every tracklet of at least one frame), write
 ``results.bin`` and ``gt.bin`` into ``--out-dir``, score them with the
 native Waymo metrics and, for ``ococcnet``, the occupancy IoU (``ctrl`` has
 no occupancy decoder). ``--eval-layout`` defaults to ``dense``.
-``sst`` / ``centerpoint`` restore ``tools/train.py sst`` / ``centerpoint``'s
-checkpoint and report KITTI AP (class ``Car``; CenterPoint's 9-dof boxes
-are cut to 7) or the native Waymo mAP / mAPH over the frames of
-``--infos``. The metrics are printed as JSON. Everything runs on
+``sst`` / ``centerpoint`` / ``fsd`` / ``fsd2`` restore ``tools/train.py``'s
+checkpoint of the family and report KITTI AP (class ``Car``; CenterPoint's
+9-dof boxes are cut to 7) or the native Waymo mAP / mAPH over the frames
+of ``--infos``. The metrics are printed as JSON. Everything runs on
 ``--device`` (``cuda`` unless the caller asks for the CPU).
 
 The flags of the JAX CLI are kept (``--device`` replaces ``--cpu``). Those
-of options not ported yet (other model families and datasets,
-``--num-sweeps`` > 0) raise ``NotImplementedError``.
+of options not ported yet (the ``fsdpp`` and ``votenet`` families, other
+datasets, ``--num-sweeps`` > 0) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -44,7 +44,8 @@ from ..evalx.evaluator import Evaluator
 from ..models.ococcnet import OcOccNetWithLoss
 from ..training.trainer import CheckpointManager
 from ..utils.device import resolve_device
-from .train import FAMILIES, build_detector, ococc_train_config
+from .train import (DETECTORS, FAMILIES, build_detector,
+                    ococc_train_config)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -57,7 +58,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--gt-candidates")
     p.add_argument("--poses")
     p.add_argument("--occ-root", default=None)
-    # frame-family inputs (sst, centerpoint)
+    # frame-family inputs (the detectors)
     p.add_argument("--infos", help="frame infos pkl")
     p.add_argument("--dataset", choices=["waymo", "argo2", "nuscenes",
                                          "lyft", "scannet", "sunrgbd"],
@@ -103,7 +104,7 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.model in ("ococcnet", "ctrl"):
         metrics = _eval_tracklets(args)
-    elif args.model in ("sst", "centerpoint"):
+    elif args.model in DETECTORS:
         metrics = _eval_detector(args)
     else:
         raise NotImplementedError(

@@ -1,6 +1,5 @@
 """Training CLI of the port (counterpart of the JAX repository's
-``tools/train.py``; the ``ococcnet``, ``ctrl``, ``sst`` and ``centerpoint``
-families so far).
+``tools/train.py``; every family but ``fsdpp`` and ``votenet``).
 
     python -m objectcentricocccompletion_torch.tools.train ococcnet \\
         --proposals data/proposals.pkl --gt-candidates data/cands.pkl \\
@@ -13,6 +12,9 @@ families so far).
     python -m objectcentricocccompletion_torch.tools.train centerpoint \\
         --infos data/infos.pkl --data-root data --total-steps 1000 \\
         [--tiny] [--device cuda] [--work-dir DIR]
+    python -m objectcentricocccompletion_torch.tools.train fsd|fsd2 \\
+        --infos data/infos.pkl --data-root data --total-steps 1000 \\
+        [--dtype bfloat16] [--tiny] [--device cuda] [--work-dir DIR]
 
 ``ococcnet`` / ``ctrl`` build ``OcOccNetConfig()`` (``--tiny``:
 ``tiny_config()``; ``ctrl``: the CTRL class variant of ``--ctrl-class``),
@@ -27,16 +29,20 @@ writes a production-scale synthetic dataset for it. ``centerpoint`` does
 the same with ``DynamicCenterPoint`` (``CenterPointConfig()``, or
 ``tiny_centerpoint_config()`` with ``--tiny``), float32 end to end: its
 ``--dtype`` sets ``encoder_dtype`` as the JAX CLI does, which only the
-column layout (not ported) reads. Weights are drawn from
+column layout (not ported) reads. ``fsd`` trains the single-stage
+``FSD`` (``FSDConfig()``, or ``tiny_fsd_config()``) on ``fsd_loss``,
+``fsd2`` the two-stage ``TwoStageFSD`` (``TwoStageFSDConfig()``, or
+``tiny_two_stage_config()``) on ``two_stage_loss``; ``--dtype`` sets
+their ``compute_dtype``. Weights are drawn from
 a ``torch.Generator`` seeded with ``--seed``; everything runs on
 ``--device`` (``cuda`` unless the caller asks for the CPU). ``--dtype``
 sets the compute dtype; parameters stay float32.
 
-The flags of the JAX CLI are kept. Those of options not ported yet (other
-model families and datasets, ``--tp``, ``--fsdp``, ``--sequence-parallel``,
-``--loader-workers`` > 0, the multi-host launch, ``--occ-pred-root``,
-``--num-sweeps``, ``--augment``, ``--disable-aug-after``, ``--gt-sample``)
-raise ``NotImplementedError``.
+The flags of the JAX CLI are kept. Those of options not ported yet (the
+``fsdpp`` and ``votenet`` families, other datasets, ``--tp``, ``--fsdp``,
+``--sequence-parallel``, ``--loader-workers`` > 0, the multi-host launch,
+``--occ-pred-root``, ``--num-sweeps``, ``--augment``,
+``--disable-aug-after``, ``--gt-sample``) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -53,6 +59,9 @@ from ..data.frame_dataset import FrameDataset
 from ..data.tracklet_dataset import TrackletDataset
 from ..models.centerpoint import (CenterPointConfig, DynamicCenterPoint,
                                   tiny_centerpoint_config)
+from ..models.fsd import FSD, FSDConfig, tiny_fsd_config
+from ..models.fsd_two_stage import (TwoStageFSD, TwoStageFSDConfig,
+                                    tiny_two_stage_config)
 from ..models.sst_detector import (SSTDetector, SSTDetectorConfig,
                                    tiny_sst_detector_config)
 from ..training.detector_trainer import train_detector
@@ -170,19 +179,40 @@ def centerpoint_train_config(tiny: bool = False, dtype: str | None = None
     return cfg
 
 
+def fsd_train_config(tiny: bool = False, dtype: str | None = None
+                     ) -> FSDConfig:
+    cfg = tiny_fsd_config() if tiny else FSDConfig()
+    if dtype:
+        cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    return cfg
+
+
+def fsd2_train_config(tiny: bool = False, dtype: str | None = None
+                      ) -> TwoStageFSDConfig:
+    """The compute dtype lives on the single-stage sub-config."""
+    cfg = tiny_two_stage_config() if tiny else TwoStageFSDConfig()
+    return dataclasses.replace(cfg, fsd=fsd_train_config(tiny, dtype))
+
+
+# family -> (model class, config of (tiny, dtype))
+DETECTORS = {
+    "sst": (SSTDetector, sst_train_config),
+    "centerpoint": (DynamicCenterPoint, centerpoint_train_config),
+    "fsd": (FSD, fsd_train_config),
+    "fsd2": (TwoStageFSD, fsd2_train_config),
+}
+
+
 def build_detector(family: str, tiny: bool = False, dtype: str | None = None,
                    device="cuda", generator: torch.Generator | None = None):
-    """The ``sst`` or ``centerpoint`` detector the CLIs train and
-    evaluate, on ``device``; weights from ``generator`` when one is
-    given."""
-    if family == "sst":
-        return SSTDetector(sst_train_config(tiny, dtype), device=device,
-                           generator=generator)
-    if family == "centerpoint":
-        return DynamicCenterPoint(centerpoint_train_config(tiny, dtype),
-                                  device=device, generator=generator)
-    raise NotImplementedError(
-        f"the {family!r} detector family is not ported yet")
+    """The detector of ``family`` (a key of ``DETECTORS``) that the CLIs
+    train and evaluate, on ``device``; weights from ``generator`` when one
+    is given. Its ``loss`` is the family's training loss."""
+    if family not in DETECTORS:
+        raise NotImplementedError(
+            f"the {family!r} detector family is not ported yet")
+    cls, config = DETECTORS[family]
+    return cls(config(tiny, dtype), device=device, generator=generator)
 
 
 def main(argv=None,
@@ -205,7 +235,7 @@ def main(argv=None,
                      ckpt_interval=args.ckpt_interval,
                      log_interval=args.log_interval, resume=not args.no_resume,
                      seed=args.seed, device=dev, hooks=hooks)
-    if args.model not in ("sst", "centerpoint"):
+    if args.model not in DETECTORS:
         raise NotImplementedError(
             f"training of the {args.model!r} family is not ported yet")
     if args.dataset != "waymo":

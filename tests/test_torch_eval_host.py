@@ -287,7 +287,7 @@ def test_cli_evaluates_a_checkpoint_of_the_train_cli(tracklets, model,
 
 def test_cli_refuses_what_is_not_ported(tracklets, tmp_path):
     _, flags, ckpts = tracklets
-    for fam in ("fsd", "fsd2", "fsdpp", "votenet"):
+    for fam in ("fsdpp", "votenet"):
         with pytest.raises(NotImplementedError, match=fam):
             tcli.main([fam, "--ckpt-dir", str(tmp_path), "--device", "cpu"])
     frame = ["sst", "--ckpt-dir", str(tmp_path), "--device", "cpu",

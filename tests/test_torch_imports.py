@@ -29,7 +29,8 @@ def test_port_sources_exist():
             "tta.py", "online_tuning.py", "waymo_bin.py", "waymo_metrics.py",
             "submission.py", "kitti_eval.py", "detector_eval.py", "test.py",
             "create_submission.py", "sparse_conv.py", "sparse_encoder.py",
-            "second.py", "centerpoint_head.py", "centerpoint.py"} <= names
+            "second.py", "centerpoint_head.py", "centerpoint.py",
+            "cluster.py", "fsd.py", "fsd_two_stage.py"} <= names
     assert (ROOT / "objectcentricocccompletion_torch" / "parallel" /
             "train.py").exists()
     csrc = ROOT / "objectcentricocccompletion_torch" / "csrc"

@@ -105,7 +105,7 @@ def test_cli_trains_logs_checkpoints_and_resumes(frames, tmp_path):
     assert ckpt["step"] == 2 and "model" in ckpt and "optimizer" in ckpt
 
 
-@pytest.mark.parametrize("extra", [["fsd"], ["sst", "--augment"],
+@pytest.mark.parametrize("extra", [["fsdpp"], ["sst", "--augment"],
                                    ["sst", "--dataset", "nuscenes"],
                                    ["sst", "--gt-sample", "2"],
                                    ["sst", "--num-sweeps", "1"]])
