@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SST inference, training and evaluation paths,
 its OcOccNet serving, training and evaluation paths, and the inference,
-training and evaluation paths of CenterPoint and of the FSD family on one
-CUDA card.
+training and evaluation paths of CenterPoint, of the FSD family and of
+FSD++, and FSDv2 training on predicted occupancy (W8), on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -28,7 +28,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    to 0 just before this run and read just after: each frame must launch
    the kernel exactly 24 times (6 blocks x 2 shifts x 2 levels). Outputs
    must be finite and of the predict shapes. Then one frame in float32
-   (TF32 off) with the kernel and with the plain attention, same weights,
+   (TF32 off; the SST's depth cut to ``FP32_CHECK_BLOCKS`` of its 6
+   blocks) with the kernel and with the plain attention, same weights,
    compared at a stated tolerance; and the same frame through the port on
    the CPU (the path the CPU tests hold to the JAX package), from the card
    with TF32 off and again under the training CLI's settings (cuDNN
@@ -154,7 +155,41 @@ Phases, each of which fails the run (non-zero exit) on any error:
     biases and the score biases lifted by ``FSD_EVAL_LIFT`` so that
     foreground and boxes survive the thresholds); the predict's ms per
     frame under the CLI.
-22. Print the kernels' JSON line (the bf16 and the float32 tensor-core
+22. FSD++ inference at the full width of ``FSDPPConfig()`` (two-stage,
+    seeds, a memory of 320,000 points; float32, seeded random weights) over
+    a sequence of 5 synthetic frames through ``benchmark fsdpp``
+    (``make_sequential_predict_fn``), the memory carried: per frame the ms, the novel points, the valid
+    memory points, the valid seeds, the memory points cropped by the seeds
+    and the merged points kept, and the peak memory; predict shapes, finite
+    where valid. No hand-written kernel lies on FSD++'s path: the
+    window-attention counts must read 0 after each FSD++ phase.
+23. A 3-frame float32 FSD++ sequence (TF32 off), card against CPU,
+    teacher-forced: at each frame both devices get the card's incoming
+    state, grouping and pooled points. The merged mask (novel points and
+    the seed crop) and the memory update, as slots that differ, at most
+    ``FSDPP_MASK_SLOTS``; the seeds the same way, at most
+    ``FSDPP_SEED_SLOTS``; the outputs at phase 18's bars.
+24. ``tools/train.py fsdpp``'s ``main`` on phase 5's 3 frames: 4 float32
+    steps of windows of 2 frames, finite losses, every parameter moved but
+    those of regression branches without positives, ms/step and the peak
+    memory.
+25. One float32 FSD++ window step (TF32 off) card against CPU, both fed
+    the card's groupings and pooled points, the same offline seeds, the
+    same seed-augmentation draws and the card's routes (``ops/routes.py``:
+    the signs of the ReLU inputs, the rows that attain each max; the fed
+    elements that differ from the CPU's own, at most ``FSDPP_ROUTE_FLIPS``
+    of those fed): the losses, every clipped gradient and every parameter
+    after the update, at phase 15's bars.
+26. ``tools/test.py fsdpp`` with ``--metric kitti`` and ``--metric waymo``
+    on phase 24's checkpoint (the seg head's class biases and stage 1's
+    score biases, which the sequential evaluation reads, lifted by
+    ``FSD_EVAL_LIFT``); the sequence step's ms per frame under the CLI.
+27. W8: ``tools/train.py fsd2 --occ-pred-root`` for 4 float32 steps on
+    phase 5's frames, with seeded ``[K, 4]`` occupancy files in
+    ``save_occ``'s layout (``<root>/<segment>/<ts>/<type>_<id>.bin``, one
+    per GT box) under each frame's segment and timestamp: the merged point
+    counts, finite losses, ms/step.
+28. Print the kernels' JSON line (the bf16 and the float32 tensor-core
     kernels, each level apart; launches of the bf16 frames and bf16
     training, and of the float32 frame, float32 training and the SST
     evaluation), then as the last line ``{"ok": true, "device": {...}}``.
@@ -173,6 +208,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from objectcentricocccompletion_torch.data.frame_dataset import (
@@ -191,10 +227,13 @@ from objectcentricocccompletion_torch.evalx.waymo_bin import read_bin
 from objectcentricocccompletion_torch.models.fsd import FSD, Grouping
 from objectcentricocccompletion_torch.models.fsd_two_stage import (
     two_stage_loss)
+from objectcentricocccompletion_torch.models.fsdpp import SequenceState
 from objectcentricocccompletion_torch.models.ococcnet import (
     OcOccNetWithLoss)
 from objectcentricocccompletion_torch.models.sst_detector import SSTDetector
 from objectcentricocccompletion_torch.ops import _build
+from objectcentricocccompletion_torch.ops.routes import Routes
+from objectcentricocccompletion_torch.ops import seeds as seed_ops
 from objectcentricocccompletion_torch.ops import voxelize as vx
 from objectcentricocccompletion_torch.parallel.train import (
     create_train_state, make_train_step)
@@ -207,6 +246,8 @@ from objectcentricocccompletion_torch.tools import train as train_cli
 from objectcentricocccompletion_torch.training.detector_trainer import (
     make_detector_train_step)
 from objectcentricocccompletion_torch.training.optim import make_optimizer
+from objectcentricocccompletion_torch.training.seq_trainer import (
+    SeqWindow, make_seq_train_step)
 from objectcentricocccompletion_torch.training.trainer import (
     CheckpointManager)
 from objectcentricocccompletion_torch.utils.device import card_info
@@ -236,6 +277,9 @@ ATOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # float32 sums in another order through 12 attention layers and the neck,
 # on maps of magnitude ~10
 FP32_MODEL_ATOL = 1e-4
+# the float32 frame's depth: 2 of the SST's 6 blocks (the CPU forward of
+# all 6 took most of the phase's 18 s; the bars above stay those of 6)
+FP32_CHECK_BLOCKS = 2
 # the same, plus cuDNN against oneDNN convolutions and GEMMs
 FP32_CPU_ATOL = 1e-3
 TIMED_FRAMES = 5
@@ -377,6 +421,36 @@ FSD_REGRESSION = ("_center.", "_dim.", "_rot.", "conv_reg.")
 # (so that foreground survives seg_score_thresh after training) and of the
 # scores (the FSD tasks' or stage 2's), so that boxes pass the decode's 0.1
 FSD_EVAL_LIFT = 3.0
+# FSD++ (no hand-written kernel; float32): the training CLI's full-width
+# FSDPPConfig() over sequences of synthetic frames (seeds 0, 1, ...)
+FSDPP_FRAMES = 5
+FSDPP_CHECK_FRAMES = 3
+# card against CPU, TF32 off, teacher-forced, written in PERF.md before the
+# first run: the slots of the merged mask (novel current points and the seed
+# crop) and of the memory update that differ, at most FSDPP_MASK_SLOTS (the
+# voxel keys are exact float32 products and integer sorts on both devices;
+# the crop's in-box test rotates by the seeds' yaw, whose sin and cos may
+# differ in the last bit, for points within a rounding step of a face)
+FSDPP_MASK_SLOTS = 8
+# the seeds come from stage-2 scores that agree to FSD_CPU_RTOL: at most
+# FSDPP_SEED_SLOTS of the 128 slots may differ in validity or label
+# (neighbours in score order swap); boxes of the slots that agree at
+# FSD_BOX_RTOL
+FSDPP_SEED_SLOTS = 8
+FSDPP_TRAIN_STEPS = 4
+FSDPP_WINDOW = 2
+# the FSD++ window step card against CPU is held to phase 15's bars with
+# the card's routes fed to the CPU (ops/routes.py): two ReLU inputs after
+# unet.down1's LayerNorm within a rounding step of 0 took opposite signs on
+# the two devices and sent unet.down1's gradient 3.5 times over its bar;
+# with the ReLU signs fed, a run sent a stage-1 head's gradient 1.01 times
+# over (PERF.md section 6, FSD++). The fed elements that differ from the
+# CPU's own route, at most this share of those fed (written before the
+# first run that fed the signs)
+FSDPP_ROUTE_FLIPS = 1e-5
+# W8: predicted occupancy points per GT box in save_occ's layout, and steps
+W8_OCC_ROWS = 512
+W8_TRAIN_STEPS = 4
 
 
 def log(msg):
@@ -692,6 +766,8 @@ def phase_fp32_model_check(dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = bench.sst_config("float32")
+    cfg = dataclasses.replace(cfg, sst=dataclasses.replace(
+        cfg.sst, num_blocks=FP32_CHECK_BLOCKS))
     kern = bench.build_sst(cfg, dev, seed=0)
     plain_cfg = dataclasses.replace(cfg, sst=dataclasses.replace(
         cfg.sst, use_pallas_attention=False))
@@ -1954,7 +2030,8 @@ def phase_fsd2_fp32_step(dev):
 
 def check_step_card_vs_cpu(what, res, init, lr):
     """The losses, the clipped gradients and the parameters after AdamW's
-    first step of a card run against a CPU run, at ``CP_STEP_*``."""
+    first step of a card run against a CPU run, at ``CP_STEP_*``; every
+    gradient and parameter finite on both devices."""
     (card, card_p), (cpu, cpu_p) = res
     for k, ref in cpu.items():
         err = abs(card[k] - ref)
@@ -1963,16 +2040,27 @@ def check_step_card_vs_cpu(what, res, init, lr):
             f"{err:.3e} (tolerance {tol:.3e})")
         if not err <= tol:
             raise AssertionError(f"{what} {k}: {err} > {tol}")
+    for where, params in (("card", card_p), ("CPU", cpu_p)):
+        bad = [n for n, (p, g) in params.items()
+               if not (torch.isfinite(p).all() and torch.isfinite(g).all())]
+        if bad:
+            raise AssertionError(f"{what}: parameters or gradients not "
+                                 f"finite on the {where}: {bad}")
     largest = max(float(g.abs().max()) for _, g in cpu_p.values())
     bars = {n: CP_STEP_GRAD_RTOL * float(g.abs().max())
             + CP_STEP_GRAD_FLOOR * largest for n, (_, g) in cpu_p.items()}
-    grad_err = max((float((card_p[n][1] - g).abs().max()) / bars[n], n)
-                   for n, (_, g) in cpu_p.items())
+    shares = {n: float((card_p[n][1] - g).abs().max()) / bars[n]
+              for n, (_, g) in cpu_p.items()}
+    # a NaN share (a 0 bar) counts as the worst and over its bar
+    worst = max(shares, key=lambda n: shares[n] if shares[n] == shares[n]
+                else float("inf"))
+    over = sorted(n for n, x in shares.items() if not x <= 1.0)
     log(f"{what}, card vs CPU: {len(cpu_p)} clipped gradients (largest "
-        f"|g| {largest:.3e}), worst share of its bar {grad_err[0]:.3e} at "
-        f"{grad_err[1]}")
-    if not grad_err[0] <= 1.0:
-        raise AssertionError(f"{what} gradients: {grad_err}")
+        f"|g| {largest:.3e}), worst share of its bar {shares[worst]:.3e} "
+        f"at {worst}; over the bar: {[(n, shares[n]) for n in over]}")
+    if over:
+        raise AssertionError(f"{what} gradients over their bars: "
+                             f"{[(n, shares[n]) for n in over]}")
     near = far = moved = 0.0
     for n, (p, g) in cpu_p.items():
         diff = (card_p[n][0] - p).abs()
@@ -1994,21 +2082,23 @@ def check_step_card_vs_cpu(what, res, init, lr):
 
 
 def lift_fsd_checkpoint(work, family):
-    """The training checkpoint of ``family`` with ``FSD_EVAL_LIFT`` added
-    to the seg head's class-logit biases and the score biases; returns its
-    directory."""
+    """The training checkpoint of ``family`` (``fsd``, ``fsd2``,
+    ``fsdpp``) with ``FSD_EVAL_LIFT`` added to the seg head's class-logit
+    biases and the score biases; returns its directory."""
     ckpt = CheckpointManager(os.path.join(work, family, "ckpt"))
     state = torch.load(ckpt.path(ckpt.steps()[-1]), map_location="cpu",
                        weights_only=True)
     model = state["model"]
-    pre = "stage1." if family == "fsd2" else ""
+    # FSD++'s sequential evaluation scores stage 1's boxes
+    pre = {"fsd": "", "fsd2": "stage1.", "fsdpp": "fsd.stage1."}[family]
     ncls = len(train_cli.fsd_train_config().class_names)
     seg = sorted(k for k in model if k.startswith(pre + "seg_head.Dense_")
                  and k.endswith(".bias"))[-1]
     model[seg][:ncls] += FSD_EVAL_LIFT
     scores = ([k for k in model if k.startswith("conv_cls.Dense_")
                and k.endswith(".bias")][-1:] if family == "fsd2" else
-              [k for k in model if "_score.Dense_" in k and k.endswith(
+              [k for k in model if k.startswith(pre)
+               and "_score.Dense_" in k and k.endswith(
                   f"Dense_{train_cli.fsd_train_config().head_layers}.bias")])
     for k in scores:
         model[k] += FSD_EVAL_LIFT
@@ -2083,6 +2173,384 @@ def phase_fsd_eval(dev, frames_dir, work):
                     f"launches 0; {shown}; card {card_info()}")
     finally:
         detector_eval.make_predict_fn = make
+
+
+def fsdpp_model(device):
+    """The training CLI's full-width FSD++ with seeded random weights."""
+    return bench.build_frame_detector("fsdpp", None, device, seed=0)
+
+
+def count_line(counts):
+    return ", ".join(f"{k} {int(v)}" for k, v in counts.items())
+
+
+def phase_fsdpp(dev):
+    """Full-width FSD++ inference over a sequence of ``FSDPP_FRAMES``
+    synthetic frames through ``benchmark fsdpp`` (``make_sequential_
+    predict_fn``, after an untimed warm-up; it checks the shapes and finite
+    values): per frame the ms, the counts and the peak memory; 0
+    window-attention launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    res = bench.bench_fsdpp(frames=FSDPP_FRAMES, device=dev)
+    no_kernel_launches("fsdpp inference")
+    rows = res["counts"]
+    if len(rows) != FSDPP_FRAMES or rows[0]["cropped"] != 0 or not all(
+            r["memory"] > 0 for r in rows):
+        raise AssertionError(f"fsdpp counts {rows}")
+    for i, (t, r, peak) in enumerate(zip(res["frame_ms"], rows,
+                                         res["frame_peak_gib"])):
+        log(f"fsdpp frame {i}: {t:.3f} ms, {count_line(r)}, peak memory "
+            f"{peak:.3f} GiB")
+    log(f"fsdpp inference: {FSDPP_FRAMES} frames of "
+        f"{res['num_real_points']} points, {res['latency_ms']:.3f} ms/frame "
+        f"(median from the third frame), peak memory "
+        f"{res['peak_memory_gib']:.3f} GiB, window-attention launches 0; "
+        f"card {card_info()}")
+
+
+def slots_differ(a, b):
+    return int((a.cpu() != b.cpu()).reshape(a.shape[0], -1).any(-1).sum())
+
+
+def compare_fsdpp_state(what, card, cpu):
+    """Slots of the memory update and of the seeds that differ, each
+    against its bar; the agreeing seeds' boxes at ``FSD_BOX_RTOL``."""
+    mem = max(slots_differ(card.memory, cpu.memory),
+              slots_differ(card.memory_mask, cpu.memory_mask),
+              slots_differ(card.memory_age, cpu.memory_age))
+    seeds = int(((card.seeds.valid.cpu() != cpu.seeds.valid)
+                 | (card.seeds.valid.cpu() & (card.seeds.labels.cpu()
+                                              != cpu.seeds.labels))).sum())
+    log(f"{what}: memory slots that differ {mem} (bar {FSDPP_MASK_SLOTS} of "
+        f"{card.memory_mask.numel()}; {int(card.memory_mask.sum())} valid), "
+        f"seed slots that differ {seeds} (bar {FSDPP_SEED_SLOTS} of "
+        f"{card.seeds.valid.numel()}; {int(card.seeds.valid.sum())} valid)")
+    if mem > FSDPP_MASK_SLOTS or seeds > FSDPP_SEED_SLOTS:
+        raise AssertionError(f"{what}: {mem} memory, {seeds} seed slots")
+    same = (card.seeds.valid.cpu() & cpu.seeds.valid
+            & (card.seeds.labels.cpu() == cpu.seeds.labels))
+    compare_fsd(what + ", seeds that agree",
+                {"boxes": card.seeds.boxes[same.to(card.seeds.boxes.device)]},
+                {"boxes": cpu.seeds.boxes[same]}, ("boxes",), FSD_BOX_RTOL)
+
+
+def phase_fsdpp_card_vs_cpu(dev):
+    """``FSDPP_CHECK_FRAMES`` full-width float32 frames (TF32 off), card
+    against CPU, teacher-forced: both devices get the card's incoming
+    state, grouping and pooled points at each frame."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card, cpu = fsdpp_model(dev), fsdpp_model("cpu")
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    state = card.init_state(5)
+    with torch.inference_mode():
+        for i in range(FSDPP_CHECK_FRAMES):
+            pts, msk = bench.frame_tensors(card.cfg, dev, 150000, i)
+            record = []
+            new_c, out_c = card(state, pts, msk, record=record)
+            grouping, selection = to_cpu(*record[0])
+            new_p, out_p = cpu(state.to("cpu"), pts.cpu(), msk.cpu(),
+                               grouping=grouping, selection=selection)
+            what = f"fsdpp frame {i} fp32, card vs CPU"
+            n = pts.shape[0]
+            keep_c, keep_p = out_c["input_mask"].cpu(), out_p["input_mask"]
+            novel = int((keep_c[:n] != keep_p[:n]).sum())
+            crop = int((keep_c[n:] != keep_p[n:]).sum())
+            log(f"{what}: merged-mask slots that differ: novel {novel}, "
+                f"crop {crop} (bar {FSDPP_MASK_SLOTS}; {int(keep_c[:n].sum())}"
+                f" novel, {int(keep_c[n:].sum())} cropped on the card)")
+            if novel + crop > FSDPP_MASK_SLOTS:
+                raise AssertionError(f"{what}: merged mask {novel}, {crop}")
+            compare_fsdpp_state(what, new_c, new_p)
+            for key in ("cluster_valid", "roi_nonempty"):
+                if not torch.equal(out_c[key].cpu(), out_p[key]):
+                    raise AssertionError(f"{what}: {key} differs")
+            compare_fsd(what, out_c, out_p, FSD_CLUSTER_KEYS + FSD2_KEYS)
+            compare_fsd(what, out_c, out_p, FSD_BOX_KEYS + ("refined_boxes",),
+                        FSD_BOX_RTOL)
+            state = new_c
+    no_kernel_launches("fsdpp card vs CPU")
+
+
+def phase_fsdpp_training(dev, frames_dir, work):
+    """``tools/train.py fsdpp``'s ``main`` at full width on the SST training
+    phase's 3 frames: ``FSDPP_TRAIN_STEPS`` float32 windows of
+    ``FSDPP_WINDOW`` frames, finite losses, every parameter moved but
+    regression branches without positives, ms/step, peak memory."""
+    infos = os.path.join(frames_dir, "infos.pkl")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stamps, seen = [], []
+
+    def hook(step, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        seen.append({k: float(v) for k, v in metrics.items()})
+
+    out = os.path.join(work, "fsdpp")
+    torch.cuda.reset_peak_memory_stats(dev)
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    done = train_cli.main([
+        "fsdpp", "--infos", infos, "--data-root", frames_dir,
+        "--total-steps", str(FSDPP_TRAIN_STEPS), "--seq-window",
+        str(FSDPP_WINDOW), "--work-dir", out, "--device", "cuda", "--seed",
+        "0"], hooks=[hook])
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    no_kernel_launches("fsdpp training")
+    keys = ("loss", "loss_seg", "loss_vote", "loss_cls", "loss_cls2",
+            "loss_reg2", "loss_corner2", "grad_norm")
+    if done != FSDPP_TRAIN_STEPS or len(seen) != FSDPP_TRAIN_STEPS or not all(
+            abs(m[k]) < float("inf") for m in seen for k in keys):
+        raise AssertionError(f"fsdpp training ran {len(seen)} steps: {seen}")
+    for i, m in enumerate(seen):
+        log(f"fsdpp training step {i + 1} " + " ".join(
+            f"{k}={m[k]:.6f}" for k in keys + ("num_pos_clusters",
+                                               "num_pos_rois2")))
+    trained = torch.load(os.path.join(out, "ckpt",
+                                      f"step_{FSDPP_TRAIN_STEPS}.pt"),
+                         map_location="cpu", weights_only=True)["model"]
+    init = fsdpp_model("cpu").state_dict()
+    same = sorted(n for n, p in init.items() if torch.equal(p, trained[n]))
+    if not all(any(r in n for r in FSD_REGRESSION)
+               and (n.endswith("bias") or "LayerNorm" in n) for n in same):
+        raise AssertionError(f"fsdpp parameters that did not move: {same}")
+    times = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+    timed = times[TRAIN_TIMED_FROM - 1:]
+    log(f"fsdpp training: {FSDPP_TRAIN_STEPS} float32 windows of "
+        f"{FSDPP_WINDOW} frames at full width through the CLI, "
+        f"{statistics.median(timed):.3f} ms/step (median of steps "
+        f"{TRAIN_TIMED_FROM}-{FSDPP_TRAIN_STEPS}; all "
+        f"{[round(x, 3) for x in times]}), peak memory {peak:.3f} GiB, "
+        f"window-attention launches 0, {len(init) - len(same)} of "
+        f"{len(init)} parameter tensors moved (unmoved: {same}); card "
+        f"{card_info()}")
+
+
+def fsdpp_window(cfg, dev):
+    """Two full-width synthetic frames with their boxes, each with offline
+    seeds on its boxes (moved by up to 0.15 m)."""
+    frames = [bench.train_batch(cfg, dev, 150000, seed=20 + i)
+              for i in range(FSDPP_WINDOW)]
+    gen = torch.Generator().manual_seed(0)
+    s = cfg.max_seeds
+    seeds = []
+    for f in frames:
+        boxes = torch.zeros((s, 7))
+        n = min(int(f.gt_valid.sum()), s)
+        boxes[:n] = f.gt_boxes[0, :n].cpu() + 0.3 * (
+            torch.rand((n, 7), generator=gen) - 0.5)
+        seeds.append((boxes, torch.zeros(s, dtype=torch.int32),
+                      torch.full((s,), 0.5), torch.arange(s) < n))
+    return SeqWindow(*(torch.cat(t, 0) for t in zip(*frames)),
+                     *(torch.stack(t).to(dev) for t in zip(*seeds)))
+
+
+def phase_fsdpp_fp32_step(dev):
+    """One float32 FSD++ window step (TF32 off, lr ``CP_STEP_LR``) at full
+    width on the card and on the CPU from the same weights and incoming
+    state (one inference frame's), both fed the card's groupings and pooled
+    points, the same offline seeds and seed-augmentation draws and the
+    card's routes: the loss dict, every clipped gradient and every
+    parameter after the update, at CenterPoint's bars."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    card = fsdpp_model(dev)
+    batch = fsdpp_window(card.cfg, dev)
+    with torch.inference_mode():
+        state, _ = card(card.init_state(5),
+                        *bench.frame_tensors(card.cfg, dev, 150000, 19))
+    state = SequenceState(*(t.clone() for t in state[:3]),
+                          seed_ops.Seeds(*(t.clone() for t in state.seeds)))
+    gen = torch.Generator().manual_seed(1)
+    noise = [seed_ops.draw_seed_noise(card.cfg.max_seeds, gen)
+             for _ in range(FSDPP_WINDOW)]
+    res, record = [], []
+    for where in (dev, "cpu"):
+        model = card if where == dev else fsdpp_model("cpu")
+        model.train()
+        init = {n: p.detach().cpu().clone()
+                for n, p in model.named_parameters()}
+        optimizer, schedule = make_optimizer(model.named_parameters(),
+                                             CP_STEP_LR, 100)
+        step_fn = make_seq_train_step(model, optimizer, schedule,
+                                      FSDPP_WINDOW)
+        if where == dev:
+            with Routes() as routes:
+                _, metrics = step_fn(0, batch, state, noise=[
+                    seed_ops.SeedNoise(*(t.to(dev) for t in nz))
+                    for nz in noise], record=record)
+        else:
+            with Routes([m.cpu() for m in routes.masks]) as fed:
+                _, metrics = step_fn(0, batch.to("cpu"), state.to("cpu"),
+                                     noise=noise, overrides=[
+                                         to_cpu(g, s) for g, s in record])
+        res.append(({k: float(v) for k, v in metrics.items()},
+                    {n: (p.detach().cpu(), p.grad.cpu())
+                     for n, p in model.named_parameters()}))
+    no_kernel_launches("fsdpp fp32 step")
+    log(f"fsdpp fp32 window step: {FSDPP_WINDOW} frames, "
+        f"{int(batch.seed_valid.sum())} offline seeds, card's groupings fed "
+        f"to the CPU ({len(record)} frames) and its {len(routes.masks)} "
+        f"routes' {fed.fed} elements: {fed.flips} differ from the CPU's "
+        f"own (bar {FSDPP_ROUTE_FLIPS:.0e} of those fed; (call, op, shape, "
+        f"count): {fed.flipped})")
+    if not fed.flips <= FSDPP_ROUTE_FLIPS * fed.fed:
+        raise AssertionError(f"fsdpp fp32 window step: {fed.flips} of "
+                             f"{fed.fed} route elements differ")
+    check_step_card_vs_cpu("fsdpp fp32 window step", res, init, schedule(0))
+
+
+def phase_fsdpp_eval(dev, frames_dir, work):
+    """``tools/test.py fsdpp`` with ``--metric kitti`` and ``--metric
+    waymo`` on the training phase's checkpoint (biases lifted by
+    ``FSD_EVAL_LIFT``) and frames: the sequence step's ms per frame under
+    the CLI; 0 window-attention launches."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    infos = os.path.join(frames_dir, "infos.pkl")
+    n = len(FrameDataset(infos, frames_dir))
+    make = detector_eval.make_sequential_predict_fn
+    lifted, keys = lift_fsd_checkpoint(work, "fsdpp")
+    log(f"fsdpp evaluation: {FSD_EVAL_LIFT} added to {keys}")
+    times = []
+
+    def timed_make(model):
+        fn = make(model)
+
+        def call(state, points, mask):
+            sync()
+            t = time.perf_counter()
+            out = fn(state, points, mask)
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    try:
+        detector_eval.make_sequential_predict_fn = timed_make
+        for metric in ("kitti", "waymo"):
+            times.clear()
+            wa.LAUNCHES.clear()
+            wa.BWD_LAUNCHES.clear()
+            t = time.perf_counter()
+            out_dir = os.path.join(work, "fsdpp", metric)
+            with contextlib.redirect_stdout(io.StringIO()):
+                metrics = test_cli.main([
+                    "fsdpp", "--infos", infos, "--data-root", frames_dir,
+                    "--ckpt-dir", lifted, "--metric", metric, "--out-dir",
+                    out_dir, "--device", "cuda"])
+            wall = time.perf_counter() - t
+            no_kernel_launches(f"fsdpp eval {metric}")
+            if len(times) != n:
+                raise AssertionError(f"fsdpp eval {metric}: {len(times)} "
+                                     f"steps for {n} frames")
+            if metric == "kitti":
+                shown = {k: v for k, v in metrics.items() if "_3d_" in k}
+                if len(shown) != 3:
+                    raise AssertionError(f"fsdpp kitti {metrics}")
+            else:
+                shown = {k: v for k, v in metrics.items()
+                         if k.startswith("OBJECT_TYPE_TYPE_VEHICLE")}
+                preds = read_bin(os.path.join(out_dir, "pred.bin"))
+                if not shown or not preds:
+                    raise AssertionError(f"fsdpp waymo: {len(preds)} "
+                                         f"predictions, metrics {metrics}")
+                shown["predictions"] = len(preds)
+            log(f"tools/test.py fsdpp --metric {metric}: {n} frames of one "
+                f"segment, wall {wall:.3f} s, sequence step "
+                f"{statistics.median(times):.3f} ms/frame (median; "
+                f"{[round(x, 3) for x in times]}), window-attention "
+                f"launches 0; {shown}; card {card_info()}")
+    finally:
+        detector_eval.make_sequential_predict_fn = make
+
+
+def write_occ_predictions(frames_dir, occ_root):
+    """Seeded ``[W8_OCC_ROWS, 4]`` float32 files in ``save_occ``'s layout,
+    one per GT box of each frame: centres inside the box and a score.
+    Returns the rows written per frame."""
+    ds = FrameDataset(os.path.join(frames_dir, "infos.pkl"), frames_dir)
+    gen = torch.Generator().manual_seed(0)
+    rows = []
+    for i, info in enumerate(ds.infos):
+        d = os.path.join(occ_root, info["segment_name"],
+                         str(info["timestamp"]))
+        os.makedirs(d, exist_ok=True)
+        s = ds.build_sample(i, np.random.RandomState(0))
+        boxes = torch.from_numpy(s["gt_boxes"][s["gt_valid"]])
+        for j, b in enumerate(boxes):
+            local = (torch.rand((W8_OCC_ROWS, 3), generator=gen) - 0.5) \
+                * b[3:6]
+            c, sn = torch.cos(b[6]), torch.sin(b[6])
+            xyz = torch.stack([local[:, 0] * c - local[:, 1] * sn + b[0],
+                               local[:, 0] * sn + local[:, 1] * c + b[1],
+                               local[:, 2] + b[2] + b[5] / 2], -1)
+            occ = torch.cat([xyz, torch.rand((W8_OCC_ROWS, 1),
+                                             generator=gen)], -1)
+            occ.numpy().astype(np.float32).tofile(
+                os.path.join(d, f"1_{j}.bin"))
+        rows.append(len(boxes) * W8_OCC_ROWS)
+    return rows
+
+
+def phase_w8_training(dev, frames_dir, work):
+    """``tools/train.py fsd2 --occ-pred-root`` for ``W8_TRAIN_STEPS``
+    float32 steps on the SST training phase's frames with seeded occupancy
+    files: the merged point counts, finite losses, ms/step."""
+    infos = os.path.join(frames_dir, "infos.pkl")
+    occ_root = os.path.join(work, "occ_pred")
+    rows = write_occ_predictions(frames_dir, occ_root)
+    plain = FrameDataset(infos, frames_dir)
+    merged = FrameDataset(infos, frames_dir, occ_pred_root=occ_root)
+    for i, r in enumerate(rows):
+        a = int(plain.build_sample(i, np.random.RandomState(0))
+                ["points_mask"].sum())
+        b = int(merged.build_sample(i, np.random.RandomState(0))
+                ["points_mask"].sum())
+        log(f"W8 frame {i}: {a} points, {r} predicted occupancy points, "
+            f"{b} merged (budget {merged.max_points})")
+        if b != min(a + r, merged.max_points) or r == 0:
+            raise AssertionError(f"W8 frame {i}: {a} + {r} -> {b}")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stamps, seen = [], []
+
+    def hook(step, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        seen.append({k: float(v) for k, v in metrics.items()})
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    done = train_cli.main([
+        "fsd2", "--infos", infos, "--data-root", frames_dir,
+        "--occ-pred-root", occ_root, "--total-steps", str(W8_TRAIN_STEPS),
+        "--log-interval", "1", "--work-dir", os.path.join(work, "w8"),
+        "--device", "cuda", "--seed", "0"], hooks=[hook])
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    no_kernel_launches("W8 training")
+    keys = ("loss", "loss_seg", "loss_cls2", "grad_norm")
+    if done != W8_TRAIN_STEPS or len(seen) != W8_TRAIN_STEPS or not all(
+            abs(m[k]) < float("inf") for m in seen for k in keys):
+        raise AssertionError(f"W8 training ran {len(seen)} steps: {seen}")
+    times = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+    log(f"W8 training (fsd2 on predicted occupancy): {W8_TRAIN_STEPS} "
+        f"float32 steps at full width through the CLI, "
+        f"{statistics.median(times[TRAIN_TIMED_FROM - 1:]):.3f} ms/step "
+        f"(median from step {TRAIN_TIMED_FROM}; all "
+        f"{[round(x, 3) for x in times]}), losses "
+        f"{[round(m['loss'], 4) for m in seen]}, peak memory {peak:.3f} GiB, "
+        f"window-attention launches 0; card {card_info()}")
 
 
 def main():
@@ -2171,6 +2639,20 @@ def main():
                 ("fsd2 fp32 step", lambda: phase_fsd2_fp32_step(dev)),
                 ("fsd evaluation",
                  lambda: phase_fsd_eval(dev, cp_frames, fsd_work))):
+            t = time.perf_counter()
+            run()
+            log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+        for name, run in (
+                ("fsdpp inference", lambda: phase_fsdpp(dev)),
+                ("fsdpp card vs CPU", lambda: phase_fsdpp_card_vs_cpu(dev)),
+                ("fsdpp training",
+                 lambda: phase_fsdpp_training(dev, cp_frames, fsd_work)),
+                ("fsdpp fp32 window step",
+                 lambda: phase_fsdpp_fp32_step(dev)),
+                ("fsdpp evaluation",
+                 lambda: phase_fsdpp_eval(dev, cp_frames, fsd_work)),
+                ("W8 training",
+                 lambda: phase_w8_training(dev, cp_frames, fsd_work))):
             t = time.perf_counter()
             run()
             log(f"phase {name}: {time.perf_counter() - t:.1f} s")

@@ -6,13 +6,19 @@ dicts with ``point_cloud.velodyne_path``, ``annos`` in KITTI camera
 coordinates and ``calib``) plus float32 ``[N, 6]`` velodyne bins. Camera
 annotations become LiDAR boxes through ``inv(R0_rect @ Tr_velo_to_cam)``.
 
+Also the W8 occupancy merge (``occ_pred_root``): the predicted occupancy
+centres that the OcOccNet evaluator writes (``evalx/evaluator.py::
+save_occ``, float32 ``[K, 4]`` files under ``<root>/<segment>/<ts>/``) join
+the frame's cloud as points whose intensity is the occupancy score; and
+``sequences``, the frames of each segment in time order (FSD++).
+
 Not ported yet, and refused with ``NotImplementedError``: the geometry
-augmentation (``augment``), GT copy-paste (``db_sampler``), multi-sweep
-loading (``num_sweeps``) and the merge of predicted occupancy points
-(``occ_pred_root``).
+augmentation (``augment``), GT copy-paste (``db_sampler``) and multi-sweep
+loading (``num_sweeps``, which widens the points).
 """
 from __future__ import annotations
 
+import glob
 import os
 import pickle
 
@@ -60,8 +66,7 @@ class FrameDataset:
                  occ_pred_root: str | None = None, load_dim: int = 6,
                  use_dim: int = 5, db_sampler=None, augment: bool = False,
                  num_sweeps: int = 0):
-        refused = {"occ_pred_root": occ_pred_root is not None,
-                   "db_sampler": db_sampler is not None,
+        refused = {"db_sampler": db_sampler is not None,
                    "augment": bool(augment), "num_sweeps": num_sweeps > 0}
         for name, asked in refused.items():
             if asked:
@@ -71,15 +76,41 @@ class FrameDataset:
         self.data_root = data_root
         self.max_points = max_points
         self.max_gt = max_gt
+        self.occ_pred_root = occ_pred_root
         self.load_dim = load_dim
         self.use_dim = use_dim
 
     def __len__(self):
         return len(self.infos)
 
+    def sequences(self) -> list[list[int]]:
+        """Frame indices grouped by driving segment (in name order), each
+        in time order: the sequences the FSD++ loader and evaluation walk."""
+        groups: dict[str, list[int]] = {}
+        for i, info in enumerate(self.infos):
+            seg = info.get("segment_name",
+                           info["point_cloud"].get("segment_name", ""))
+            groups.setdefault(seg, []).append(i)
+        key = lambda i: self.infos[i].get("timestamp", i)  # noqa: E731
+        return [sorted(ids, key=key) for _, ids in sorted(groups.items())]
+
+    def load_occ_points(self, segment: str, ts) -> np.ndarray:
+        """Every predicted occupancy centre of a frame -> [K, use_dim]
+        points: xyz, the occupancy score as intensity, zeros elsewhere."""
+        d = os.path.join(self.occ_pred_root, segment, str(ts))
+        rows = [np.fromfile(f, np.float32).reshape(-1, 4)
+                for f in glob.glob(os.path.join(d, "*.bin"))]
+        if not rows:
+            return np.zeros((0, self.use_dim), np.float32)
+        occ = np.concatenate(rows, 0)
+        out = np.zeros((len(occ), self.use_dim), np.float32)
+        out[:, :4] = occ
+        return out
+
     def build_sample(self, index: int, rng: np.random.RandomState) -> dict:
         """Frame ``index`` padded to the budgets: ``points`` [max_points,
-        use_dim] (a random subset from ``rng`` where the frame has more),
+        use_dim] (a random subset from ``rng`` where the frame, with its
+        predicted occupancy points, has more),
         ``points_mask``, ``gt_boxes`` [max_gt, 7], ``gt_labels``,
         ``gt_valid``."""
         info = self.infos[index]
@@ -87,6 +118,11 @@ class FrameDataset:
         pts = np.fromfile(os.path.join(self.data_root, vpath),
                           np.float32).reshape(-1, self.load_dim)
         pts = pts[:, :self.use_dim]
+        if self.occ_pred_root is not None:
+            info_seg = info.get("segment_name",
+                                info["point_cloud"].get("segment_name", ""))
+            pts = np.concatenate([pts, self.load_occ_points(
+                info_seg, info.get("timestamp", 0))], 0)
 
         rect = np.asarray(info["calib"]["R0_rect"], np.float64)
         trv2c = np.asarray(info["calib"]["Tr_velo_to_cam"], np.float64)

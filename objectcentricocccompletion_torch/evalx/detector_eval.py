@@ -1,13 +1,13 @@
 """Detector evaluation (counterpart of the JAX package's
-``evalx/detector_eval.py``; the SST, CenterPoint, FSD and two-stage FSD
-families so far):
+``evalx/detector_eval.py``; the SST, CenterPoint, FSD, two-stage FSD and
+FSD++ families):
 prediction over the val frames on the model's device, score filtering and
 per-class rotated NMS, then KITTI-protocol AP or the Waymo ``.bin`` files
-and the native mAP / mAPH.
+and the native mAP / mAPH. FSD++ walks each segment's frames in time order
+with its memory carried from frame to frame (fresh at each segment).
 
 The IoU matrices of the NMS and of the AP are computed on the model's
 device; the greedy sweeps, the matching and the files stay on the host.
-FSD++'s sequential evaluation is not ported yet.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import torch
 
 from ..data import np_geometry as npg
 from ..data.frame_dataset import CLASS_MAP
+from ..models.fsdpp import init_sequence_state
 from .kitti_eval import _pairwise_iou3d, difficulty_from_annos, kitti_eval
 from .waymo_bin import _CLASS_TO_WAYMO, WaymoObject, write_bin
 from .waymo_metrics import compute_metrics
@@ -78,13 +79,71 @@ def make_predict_fn(model, family: str):
 
 
 def make_sequential_predict_fn(model):
-    raise NotImplementedError(
-        "make_sequential_predict_fn (FSD++) is not ported yet")
+    """FSD++: ``(state, points, mask) -> (new state, (boxes [C, 7], scores
+    [C], labels [C], valid [C]))``, one sequence step on the model's
+    device; the caller threads the state through a sequence. As the JAX
+    function, it scores stage 1's own-class boxes with the best task's
+    ``sigmoid(max(cls))`` even when the wrapped detector is two-stage."""
+    def step(state, points, mask):
+        new_state, out = model(state, points, mask)
+        return new_state, (out["boxes"], torch.sigmoid(out["cls"].amax(-1)),
+                           out["cls"].argmax(-1), out["cluster_valid"])
+    return torch.inference_mode()(step)
 
 
-def evaluate_detector_sequential(*args, **kwargs):
-    raise NotImplementedError(
-        "evaluate_detector_sequential (FSD++) is not ported yet")
+def _sequential_results(model, dataset, score_thresh, nms_iou, max_frames,
+                        seed):
+    """Yields (pred, gt, meta) per frame over ``dataset.sequences()``, the
+    FSD++ memory carried across a segment's frames and fresh at each
+    segment's start. The NMS is over every class at once, as in the JAX
+    function."""
+    device = _model_device(model)
+    step = make_sequential_predict_fn(model)
+    rng = np.random.RandomState(seed)
+    budget = len(dataset) if max_frames is None else max_frames
+    done = 0
+    for seq in dataset.sequences():
+        mem = None
+        for idx in seq:
+            if done >= budget:
+                return
+            s = dataset.build_sample(idx, rng)
+            if mem is None:
+                mem = init_sequence_state(model.cfg, s["points"].shape[-1],
+                                          device)
+            mem, out = step(mem, torch.from_numpy(s["points"]).to(device),
+                            torch.from_numpy(s["points_mask"]).to(device))
+            b, sc, lb, ok = (np.asarray(x.cpu()) for x in out)
+            keep = ok & (sc > score_thresh) & np.isfinite(b).all(-1)
+            b, sc, lb = b[keep], sc[keep], lb[keep]
+            if len(b):
+                k = host_nms(b, sc, nms_iou, device=device)
+                b, sc, lb = b[k], sc[k], lb[k]
+            gt, meta = _gt_and_meta(dataset, idx, s)
+            yield dict(boxes=b, scores=sc, labels=lb), gt, meta
+            done += 1
+
+
+def evaluate_detector_sequential(model, dataset, classes=("Car",),
+                                 score_thresh: float = 0.1,
+                                 nms_iou: float = 0.25,
+                                 max_frames: int | None = None,
+                                 seed: int = 0, metric: str = "kitti",
+                                 out_dir: str | None = None) -> dict:
+    """FSD++ evaluation over memory-threaded sequences: KITTI AP
+    (``metric="kitti"``) or the native Waymo mAP / mAPH (``"waymo"``,
+    which needs ``out_dir`` for the ``.bin`` files)."""
+    results = _sequential_results(model, dataset, score_thresh, nms_iou,
+                                  max_frames, seed)
+    if metric == "waymo":
+        assert out_dir is not None, "waymo metric needs out_dir"
+        return _score_waymo(results, out_dir, classes)
+    preds, gts = [], []
+    for pred, gt, _ in results:
+        preds.append(pred)
+        gts.append(gt)
+    return kitti_eval(preds, gts, classes=classes,
+                      device=_model_device(model))
 
 
 def points_in_box_host(points_xyz: np.ndarray, box: np.ndarray,

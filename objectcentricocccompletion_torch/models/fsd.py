@@ -47,6 +47,7 @@ from ..ops import cluster as cl
 from ..ops import sparse_conv as sc
 from ..ops import voxelize as vx
 from ..ops.masked import gather_rows, segment_max, segment_sum
+from ..ops.routes import relu
 from ..utils.device import resolve_device
 from .layers import (LN_EPS, Mlp, VfeLayer, he_normal_, init_flax_like_,
                      layer_norm_one_pass)
@@ -227,7 +228,7 @@ class SparseUNet(nn.Module):
             if s_table is not None:
                 x = sc.sparse_conv_apply(x, s_table, getattr(self, f"down{i}"),
                                          grid.valid)
-                x = torch.relu(layer_norm_one_pass(
+                x = relu(layer_norm_one_pass(
                     getattr(self, f"down{i}_norm"), x)).to(dt)
             ctx = GatherCtx(sc.neighbor_table(grid, grid.coords, grid.valid,
                                               offs), grid.valid)

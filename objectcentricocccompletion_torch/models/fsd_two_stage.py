@@ -110,8 +110,15 @@ class TwoStageFSD(nn.Module):
         ``grouping`` goes to stage 1, ``selection`` replaces
         :meth:`select_points`'s, for a caller that holds one run against
         another from the same clusters and pooled points."""
+        return self.refine(points, mask, self.stage1(points, mask, grouping),
+                           selection)
+
+    def refine(self, points: torch.Tensor, mask: torch.Tensor, out1: dict,
+               selection: tuple | None = None) -> dict:
+        """Stage 2 over stage 1's output dict ``out1``, whose ``boxes`` are
+        the proposals: the forward's dict. A caller may hold stage 2 apart
+        from stage 1 by giving it another run's proposals."""
         c = self.cfg
-        out1 = self.stage1(points, mask, grouping)
         rois = out1["boxes"]
         idx, pmask = selection or self.select_points(points, mask, rois)
         roi_pts = points[idx]                                # [R, P, C]

@@ -11,6 +11,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops.routes import relu
+
 LN_EPS = 1e-3
 
 _INV_SQRT2 = 0.7071067811865476
@@ -117,7 +119,7 @@ def gelu_auto(x: torch.Tensor) -> torch.Tensor:
 
 
 def activation(name: str):
-    return {"gelu": gelu_auto, "relu": torch.relu,
+    return {"gelu": gelu_auto, "relu": relu,
             "leakyrelu": F.leaky_relu}[name]
 
 

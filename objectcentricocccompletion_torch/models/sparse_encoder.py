@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from ..ops import sparse_conv as sc
+from ..ops.routes import relu
 from .layers import LN_EPS, dense, layer_norm
 
 OFFSETS_27 = sc.kernel_offsets(3)
@@ -56,7 +57,7 @@ def _kernel(k: int, cin: int, cout: int) -> nn.Parameter:
 
 def _norm_act(norm: nn.LayerNorm, x: torch.Tensor, valid: torch.Tensor
               ) -> torch.Tensor:
-    return torch.where(valid[:, None], torch.relu(layer_norm(norm, x)), 0.0)
+    return torch.where(valid[:, None], relu(layer_norm(norm, x)), 0.0)
 
 
 class SubMConv(nn.Module):
@@ -97,7 +98,7 @@ class SparseBasicBlock(nn.Module):
         x = layer_norm(self.norm2, ctx.conv(x, self.conv2_kernel))
         identity = (feats if self.proj is None
                     else dense(self.proj, feats, self.dtype))
-        return ctx.mask(torch.relu(x + identity)).to(self.dtype)
+        return ctx.mask(relu(x + identity)).to(self.dtype)
 
 
 class SparseEncoder(nn.Module):

@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from ..ops import voxelize as vx
+from ..ops.routes import relu
 from .layers import LN_EPS, dense, layer_norm_one_pass
 
 
@@ -60,8 +61,7 @@ class DynamicVFE(nn.Module):
         point_feats = torch.where(pvalid, x, 0.0)
         for i in range(self.num_layers):
             h = dense(getattr(self, f"vfe_{i}"), point_feats, self.dtype)
-            h = torch.relu(layer_norm_one_pass(getattr(self, f"norm_{i}"),
-                                               h))
+            h = relu(layer_norm_one_pass(getattr(self, f"norm_{i}"), h))
             point_feats = torch.where(pvalid, h, 0.0)
             vfeat = vx.scatter_to_voxels(point_feats, p2v, max_voxels,
                                          self.mode)

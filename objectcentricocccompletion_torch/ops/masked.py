@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from .routes import fed_max, taking
+
 _NEG = -1e30
 
 
@@ -20,9 +22,17 @@ def _expand(mask: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def masked_max(x: torch.Tensor, mask: torch.Tensor, dim: int
                ) -> torch.Tensor:
-    """Max over ``dim`` of the ``mask``-true items; 0 for an empty group."""
+    """Max over ``dim`` of the ``mask``-true items; 0 for an empty group.
+    Routed (``ops/routes.py``)."""
     m = _expand(mask, x)
-    out = torch.where(m, x, _NEG).amax(dim)
+    xm = torch.where(m, x, _NEG)
+    out = xm.amax(dim)
+    routes = taking(x)
+    if routes is not None:
+        win = routes.take("masked_max", (xm.detach() == out.detach()
+                                         .unsqueeze(dim)) & m)
+        if routes.feeding:
+            out = fed_max(out, x, win, lambda t: t.sum(dim))
     return torch.where(m.any(dim), out, 0.0)
 
 
@@ -57,10 +67,17 @@ def segment_max(x: torch.Tensor, segment_ids: torch.Tensor,
     """Per-segment max of the rows of ``x`` [N, C]; 0 for an empty segment
     and where the max is not finite. The gradient of a maximum that
     several rows share is split equally among them, as ``jax.grad`` of
-    ``jax.ops.segment_max`` splits it."""
+    ``jax.ops.segment_max`` splits it; routed (``ops/routes.py``)."""
     idx = segment_ids[:, None].expand(x.shape)
     out = x.new_zeros((num_segments, x.shape[1])).scatter_reduce(
         0, idx, x, "amax", include_self=False)
+    routes = taking(x)
+    if routes is not None:
+        win = routes.take("segment_max",
+                          x.detach() == out.detach()[segment_ids])
+        if routes.feeding:
+            out = fed_max(out, x, win, lambda t: segment_sum(
+                t, segment_ids, num_segments))
     return torch.where(torch.isfinite(out), out, 0.0)
 
 

@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from .routes import fed_max, taking
+
 
 class VoxelizeResult(NamedTuple):
     coords: torch.Tensor       # [V, 3] int64 voxel coords, (x, y, z) order
@@ -89,7 +91,7 @@ def scatter_to_voxels(feats: torch.Tensor, p2v: torch.Tensor,
                       max_voxels: int, mode: str = "max") -> torch.Tensor:
     """Per-voxel reduction of point features [N, C] -> [max_voxels, C].
     Points with ``p2v == -1`` go to a spare row that is sliced away; empty
-    voxels give 0."""
+    voxels give 0. The max is routed (``ops/routes.py``)."""
     seg = torch.where(p2v >= 0, p2v, max_voxels)
     c = feats.shape[1]
     shape = (max_voxels + 1, c)
@@ -97,6 +99,13 @@ def scatter_to_voxels(feats: torch.Tensor, p2v: torch.Tensor,
         out = torch.full(shape, float("-inf"), dtype=feats.dtype,
                          device=feats.device)
         out.scatter_reduce_(0, seg[:, None].expand(-1, c), feats, "amax")
+        routes = taking(feats)
+        if routes is not None:
+            win = routes.take("voxel_max", (feats.detach() == out.detach()[
+                seg]) & (p2v >= 0)[:, None])
+            if routes.feeding:
+                out = fed_max(out, feats, win, lambda t: t.new_zeros(
+                    shape).index_add(0, seg, t))
         out = torch.where(torch.isfinite(out), out, 0.0)
     elif mode in ("mean", "avg", "sum"):
         out = torch.zeros(shape, dtype=feats.dtype, device=feats.device)

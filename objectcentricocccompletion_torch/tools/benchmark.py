@@ -1,6 +1,6 @@
 """Latency benchmark of the port (counterpart of the JAX repository's
 ``tools/benchmark.py`` and ``benchmarks/bench_detectors.py``; every family
-but ``fsdpp`` and ``votenet``, which raise).
+but ``votenet``, which raises).
 
     python -m objectcentricocccompletion_torch.tools.benchmark sst \\
         --frames 20 --dtype bfloat16
@@ -14,6 +14,8 @@ but ``fsdpp`` and ``votenet``, which raise).
         [--train] [--frames 20] [--num-real 150000]
     python -m objectcentricocccompletion_torch.tools.benchmark fsd|fsd2 \\
         [--train] [--frames 20] [--num-real 150000] [--dtype bfloat16]
+    python -m objectcentricocccompletion_torch.tools.benchmark fsdpp \\
+        [--train] [--frames 10] [--num-real 150000]
 
 ``sst`` builds the full-width ``SSTDetector(SSTDetectorConfig())`` with
 weights drawn from a seeded ``torch.Generator`` (no checkpoint is needed). By
@@ -59,6 +61,17 @@ points over ``seg_score_thresh`` against ``max_fg_per_class``, the cluster
 voxels against ``max_cluster_voxels`` and the clusters against
 ``max_clusters_per_class``.
 
+``fsdpp`` builds the training CLI's full-width FSD++ (``FSDPPConfig()``:
+two-stage, seeds, a memory of 320,000 points) and runs a sequence of
+``--frames`` ``synth_frame``s (seeds 0, 1, ...) through
+``make_sequential_predict_fn``, the memory carried: it prints each frame's
+ms, the median from the third frame on (the memory full), the peak memory,
+and per frame the novel points, the valid memory points, the valid seeds,
+the memory points cropped by the seeds and the merged points kept. With
+``--train`` it times window steps (window 2, the CLI's default) of
+``make_seq_train_step`` over consecutive windows of ``synth_frame``s with
+their boxes, the memory carried from step to step.
+
 ``--profile N`` also traces N more frames (steps; for ``ococcnet``
 batches, predict and decode) with ``torch.profiler``, prints the operators
 that take the most device time, and adds the device's busy time per frame
@@ -79,7 +92,7 @@ import torch
 from ..configs.ococcnet_config import OcOccNetConfig
 from ..data.synthetic import synth_frame, synthetic_batch
 from ..data.tracklet import TrackletBatch
-from ..evalx.detector_eval import make_predict_fn
+from ..evalx.detector_eval import make_predict_fn, make_sequential_predict_fn
 from ..models.centerpoint import DynamicCenterPoint
 from ..models.ococcnet import OcOccNetWithLoss, gt_occ_to_roi_frame
 from ..models.sst_detector import SSTDetector, SSTDetectorConfig
@@ -87,6 +100,8 @@ from ..parallel.train import create_train_state, make_train_step
 from ..training.detector_trainer import (FrameBatch, collate_frames,
                                          make_detector_train_step)
 from ..training.optim import make_optimizer
+from ..training.seq_trainer import (SeqWindow, make_seq_train_step,
+                                    step_generator)
 from ..utils.device import card_info, resolve_device
 from .train import build_detector
 
@@ -280,9 +295,9 @@ def build_centerpoint(device="cuda", seed: int = 0) -> DynamicCenterPoint:
 
 def build_frame_detector(family: str, dtype: str | None = None,
                          device="cuda", seed: int = 0):
-    """The full-width ``centerpoint``, ``fsd`` or ``fsd2`` detector of the
-    training CLI (``dtype``: its ``--dtype``) with seeded random
-    weights."""
+    """The full-width ``centerpoint``, ``fsd``, ``fsd2`` or ``fsdpp``
+    detector of the training CLI (``dtype``: its ``--dtype``) with seeded
+    random weights."""
     return build_detector(family, dtype=dtype, device=device,
                           generator=torch.Generator().manual_seed(seed)
                           ).eval()
@@ -360,6 +375,123 @@ def bench_detector_train(family: str = "centerpoint", steps: int = 10,
            "peak_memory_gib": _peak_gib(dev),
            **budgets(model, batch.points[0], batch.points_mask[0]),
            **_card(dev)}
+    if profile_n:
+        res.update(profile_calls(step, profile_n, dev, unit="step"))
+    return res
+
+
+def sequence_counts(state, out, n_points: int) -> dict:
+    """A FSD++ step's counts (0-d tensors): novel points of the frame that
+    the step kept, valid memory points and valid seeds after it, memory
+    points that the seeds cropped, merged points kept."""
+    keep = out["input_mask"]
+    return {"novel": keep[:n_points].sum(),
+            "memory": state.memory_mask.sum(),
+            "seeds": state.seeds.valid.sum(),
+            "cropped": keep[n_points:].sum(), "merged": keep.sum()}
+
+
+def bench_fsdpp(frames: int = 10, dtype: str | None = None, device="cuda",
+                seed: int = 0, num_real: int = 150000,
+                profile_n: int = 0) -> dict:
+    """Full-width FSD++ over a sequence of ``frames`` synthetic frames (one
+    sequence, the memory carried), after an untimed two-frame warm-up
+    sequence: each frame's ms and peak memory, the median from the third
+    frame on, the peak over the timed sequence and each frame's counts.
+    Raises where a frame's boxes or scores are not finite or not of the
+    step's shapes."""
+    dev = resolve_device(device)
+    model = build_frame_detector("fsdpp", dtype, dev, seed)
+    step = make_sequential_predict_fn(model)
+    n_slots = model.cfg.fsd.max_clusters
+    seq = [frame_tensors(model.cfg, dev, num_real, seed + i)
+           for i in range(frames)]
+    counts = []
+    hook = model.register_forward_hook(
+        lambda mod, args, res: counts.append(
+            sequence_counts(res[0], res[1], args[1].shape[0])))
+    mem = model.init_state(seq[0][0].shape[-1])
+    for pts, msk in seq[:2]:
+        mem, _ = step(mem, pts, msk)
+    _sync(dev)
+    counts.clear()
+    times, peaks = [], []
+    mem = model.init_state(seq[0][0].shape[-1])
+    for pts, msk in seq:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        mem, (boxes, scores, labels, valid) = step(mem, pts, msk)
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(_peak_gib(dev))
+        shapes = [tuple(x.shape) for x in (boxes, scores, labels, valid)]
+        if shapes != [(n_slots, 7), (n_slots,), (n_slots,), (n_slots,)] or \
+                not (torch.isfinite(boxes[valid]).all()
+                     and torch.isfinite(scores).all()):
+            raise AssertionError(f"fsdpp predict: shapes {shapes} or values "
+                                 f"not finite")
+    hook.remove()
+    mid = times[2:] or times
+    res = {"family": "fsdpp", "dtype": dtype or "float32", "frames": frames,
+           "num_real_points": num_real,
+           "latency_ms": statistics.median(mid),
+           "first_frame_ms": times[0], "frame_ms": times,
+           "fps": 1e3 / statistics.median(mid), "unit": "frames/sec",
+           "peak_memory_gib": None if peaks[0] is None else max(peaks),
+           "frame_peak_gib": peaks,
+           "counts": [{k: int(v) for k, v in c.items()} for c in counts],
+           **_card(dev)}
+    if profile_n:
+        state = [mem]
+
+        def frame():
+            state[0], _ = step(state[0], *seq[-1])
+        res.update(profile_calls(frame, profile_n, dev))
+    return res
+
+
+def bench_fsdpp_train(steps: int = 10, dtype: str | None = None,
+                      device="cuda", seed: int = 0, num_real: int = 150000,
+                      profile_n: int = 0, warmup: int = 2,
+                      window: int = 2) -> dict:
+    """Full-width FSD++ window steps (``window`` frames, the seed
+    augmentation, the mean loss, backward, clip, AdamW at the schedule of
+    ``train_fsdpp``'s defaults) over consecutive windows of one sequence of
+    synthetic frames (every step its own frames), the memory carried from
+    step to step; the median step over ``steps`` after ``warmup``."""
+    dev = resolve_device(device)
+    model = build_frame_detector("fsdpp", dtype, dev, seed).train()
+    total = warmup + steps + profile_n
+    frames = [train_batch(model.cfg, dev, num_real, seed + i)
+              for i in range(total * window)]
+    windows = [SeqWindow(*(torch.cat(t, 0) for t in zip(
+        *frames[i * window:(i + 1) * window]))) for i in range(total)]
+    optimizer, schedule = make_optimizer(model.named_parameters(),
+                                         base_lr=1e-5, total_steps=total)
+    step_fn = make_seq_train_step(model, optimizer, schedule, window)
+    count = iter(range(total))
+    state = {"mem": model.init_state(windows[0].points.shape[-1]),
+             "metrics": {}}
+
+    def step():
+        i = next(count)
+        state["mem"], state["metrics"] = step_fn(
+            i, windows[i], state["mem"], generator=step_generator(seed, i))
+
+    for _ in range(warmup):
+        step()
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    times = time_calls(step, steps, dev, warmup=0)
+    med = statistics.median(times)
+    res = {"family": "fsdpp", "mode": "train", "dtype": dtype or "float32",
+           "steps": steps, "window": window, "num_real_points": num_real,
+           "step_ms": med, "mean_ms": statistics.fmean(times),
+           "step_ms_all": times,
+           "metrics": {k: float(v) for k, v in state["metrics"].items()},
+           "peak_memory_gib": _peak_gib(dev), **_card(dev)}
     if profile_n:
         res.update(profile_calls(step, profile_n, dev, unit="step"))
     return res
@@ -500,8 +632,8 @@ def main(argv=None) -> None:
                    help="time training steps instead of predict")
     p.add_argument("--dtype", default=None,
                    choices=["bfloat16", "float32"],
-                   help="sst / ococcnet: bfloat16 by default; fsd / fsd2: "
-                        "float32 by default; centerpoint computes in "
+                   help="sst / ococcnet: bfloat16 by default; fsd / fsd2 / "
+                        "fsdpp: float32 by default; centerpoint computes in "
                         "float32 only")
     p.add_argument("--device", default="cuda")
     p.add_argument("--num-real", type=int, default=150000,
@@ -510,9 +642,15 @@ def main(argv=None) -> None:
                    help="also trace N frames (or steps) with "
                         "torch.profiler")
     args = p.parse_args(argv)
-    if args.family in ("fsdpp", "votenet"):
+    if args.family == "votenet":
         raise NotImplementedError(
             f"the {args.family!r} family is not ported yet")
+    if args.family == "fsdpp":
+        bench = bench_fsdpp_train if args.train else bench_fsdpp
+        print(json.dumps(bench(args.frames, args.dtype, args.device,
+                               num_real=args.num_real,
+                               profile_n=args.profile)))
+        return
     if args.family in ("centerpoint", "fsd", "fsd2"):
         if args.family == "centerpoint" and args.dtype not in (None,
                                                                "float32"):

@@ -1,5 +1,5 @@
 """Evaluation CLI of the port (counterpart of the JAX repository's
-``tools/test.py``; every family but ``fsdpp`` and ``votenet``).
+``tools/test.py``; every family but ``votenet``).
 
     python -m objectcentricocccompletion_torch.tools.test ococcnet \\
         --proposals data/proposals.pkl --gt-candidates data/cands.pkl \\
@@ -9,7 +9,7 @@
         [--no-occ] [--max-tracklets N] [--eval-layout dense|packed] \\
         [--tiny] [--device cuda]
     python -m objectcentricocccompletion_torch.tools.test \\
-        sst|centerpoint|fsd|fsd2 \\
+        sst|centerpoint|fsd|fsd2|fsdpp \\
         --infos data/infos.pkl --data-root data \\
         --ckpt-dir work_dirs/sst/ckpt [--metric kitti|waymo] \\
         [--score-thresh 0.1] [--max-frames N] [--out-dir DIR] [--tiny] \\
@@ -24,12 +24,15 @@ no occupancy decoder). ``--eval-layout`` defaults to ``dense``.
 ``sst`` / ``centerpoint`` / ``fsd`` / ``fsd2`` restore ``tools/train.py``'s
 checkpoint of the family and report KITTI AP (class ``Car``; CenterPoint's
 9-dof boxes are cut to 7) or the native Waymo mAP / mAPH over the frames
-of ``--infos``. The metrics are printed as JSON. Everything runs on
-``--device`` (``cuda`` unless the caller asks for the CPU).
+of ``--infos``; ``fsdpp`` walks each segment's frames in time order with
+its memory carried (``evaluate_detector_sequential``, which, as the JAX
+function, scores stage 1's boxes). The metrics are printed as JSON.
+Everything runs on ``--device`` (``cuda`` unless the caller asks for the
+CPU).
 
 The flags of the JAX CLI are kept (``--device`` replaces ``--cpu``). Those
-of options not ported yet (the ``fsdpp`` and ``votenet`` families, other
-datasets, ``--num-sweeps`` > 0) raise ``NotImplementedError``.
+of options not ported yet (the ``votenet`` family, other datasets,
+``--num-sweeps`` > 0) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,7 +42,9 @@ import json
 
 from ..data.frame_dataset import CLASS_MAP, FrameDataset
 from ..data.tracklet_dataset import TrackletDataset
-from ..evalx.detector_eval import evaluate_detector, evaluate_detector_waymo
+from ..evalx.detector_eval import (evaluate_detector,
+                                  evaluate_detector_sequential,
+                                  evaluate_detector_waymo)
 from ..evalx.evaluator import Evaluator
 from ..models.ococcnet import OcOccNetWithLoss
 from ..training.trainer import CheckpointManager
@@ -151,12 +156,18 @@ def _eval_detector(args) -> dict:
     model = build_detector(args.model, args.tiny, device=dev)
     _restore(model, args.ckpt_dir)
     model.eval()
+    # every class of the frames' labels, so that no GT label falls outside
+    # the list of the Waymo files
+    every_class = tuple(sorted(CLASS_MAP, key=CLASS_MAP.get))
+    if args.model == "fsdpp":
+        return evaluate_detector_sequential(
+            model, ds, classes=every_class if args.metric == "waymo"
+            else ("Car",), score_thresh=args.score_thresh,
+            max_frames=args.max_frames, metric=args.metric,
+            out_dir=args.out_dir)
     if args.metric == "waymo":
-        # every class of the frames' labels, so that no GT label falls
-        # outside the list
-        classes = tuple(sorted(CLASS_MAP, key=CLASS_MAP.get))
         return evaluate_detector_waymo(
-            model, args.model, ds, args.out_dir, classes=classes,
+            model, args.model, ds, args.out_dir, classes=every_class,
             score_thresh=args.score_thresh, max_frames=args.max_frames)
     return evaluate_detector(model, args.model, ds,
                              score_thresh=args.score_thresh,

@@ -1,5 +1,5 @@
 """Training CLI of the port (counterpart of the JAX repository's
-``tools/train.py``; every family but ``fsdpp`` and ``votenet``).
+``tools/train.py``; every family but ``votenet``).
 
     python -m objectcentricocccompletion_torch.tools.train ococcnet \\
         --proposals data/proposals.pkl --gt-candidates data/cands.pkl \\
@@ -15,6 +15,9 @@
     python -m objectcentricocccompletion_torch.tools.train fsd|fsd2 \\
         --infos data/infos.pkl --data-root data --total-steps 1000 \\
         [--dtype bfloat16] [--tiny] [--device cuda] [--work-dir DIR]
+    python -m objectcentricocccompletion_torch.tools.train fsdpp \\
+        --infos data/infos.pkl --data-root data --total-steps 1000 \\
+        [--seq-window 2] [--tiny] [--device cuda] [--work-dir DIR]
 
 ``ococcnet`` / ``ctrl`` build ``OcOccNetConfig()`` (``--tiny``:
 ``tiny_config()``; ``ctrl``: the CTRL class variant of ``--ctrl-class``),
@@ -33,16 +36,22 @@ column layout (not ported) reads. ``fsd`` trains the single-stage
 ``FSD`` (``FSDConfig()``, or ``tiny_fsd_config()``) on ``fsd_loss``,
 ``fsd2`` the two-stage ``TwoStageFSD`` (``TwoStageFSDConfig()``, or
 ``tiny_two_stage_config()``) on ``two_stage_loss``; ``--dtype`` sets
-their ``compute_dtype``. Weights are drawn from
+their ``compute_dtype``. ``fsdpp`` trains FSD++ (``FSDPPConfig()``, or
+``tiny_fsdpp_config()``) on windows of ``--seq-window`` consecutive frames
+of each segment with ``training/seq_trainer.py::train_fsdpp``, which, as
+the JAX CLI's call, logs every 50 steps whatever ``--log-interval`` says.
+``--occ-pred-root`` merges the predicted occupancy points that
+``Evaluator.run(save_occ_root=...)`` writes into every frame family's
+frames (W8). Weights are drawn from
 a ``torch.Generator`` seeded with ``--seed``; everything runs on
 ``--device`` (``cuda`` unless the caller asks for the CPU). ``--dtype``
 sets the compute dtype; parameters stay float32.
 
 The flags of the JAX CLI are kept. Those of options not ported yet (the
-``fsdpp`` and ``votenet`` families, other datasets, ``--tp``, ``--fsdp``,
+``votenet`` family, other datasets, ``--tp``, ``--fsdp``,
 ``--sequence-parallel``, ``--loader-workers`` > 0, the multi-host launch,
-``--occ-pred-root``, ``--num-sweeps``, ``--augment``,
-``--disable-aug-after``, ``--gt-sample``) raise ``NotImplementedError``.
+``--num-sweeps``, ``--augment``, ``--disable-aug-after``, ``--gt-sample``)
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -62,9 +71,11 @@ from ..models.centerpoint import (CenterPointConfig, DynamicCenterPoint,
 from ..models.fsd import FSD, FSDConfig, tiny_fsd_config
 from ..models.fsd_two_stage import (TwoStageFSD, TwoStageFSDConfig,
                                     tiny_two_stage_config)
+from ..models.fsdpp import FSDPP, FSDPPConfig, tiny_fsdpp_config
 from ..models.sst_detector import (SSTDetector, SSTDetectorConfig,
                                    tiny_sst_detector_config)
 from ..training.detector_trainer import train_detector
+from ..training.seq_trainer import train_fsdpp
 from ..training.trainer import train
 from ..utils.device import resolve_device
 
@@ -86,7 +97,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    default="waymo", help="frame dataset family")
     p.add_argument("--data-root", help="frame data root")
     p.add_argument("--occ-pred-root", default=None,
-                   help="merge predicted occupancy points (not ported)")
+                   help="merge predicted occupancy points (W8)")
     p.add_argument("--work-dir", default="work_dirs/run")
     p.add_argument("--total-steps", type=int, default=None)
     p.add_argument("--ckpt-interval", type=int, default=1000)
@@ -96,6 +107,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--no-resume", action="store_true")
     p.add_argument("--tiny", action="store_true",
                    help="tiny config for smoke runs")
+    p.add_argument("--seq-window", type=int, default=2,
+                   help="frames per window (fsdpp)")
     p.add_argument("--num-sweeps", type=int, default=0,
                    help="multi-sweep frames (not ported)")
     p.add_argument("--augment", action="store_true",
@@ -194,12 +207,20 @@ def fsd2_train_config(tiny: bool = False, dtype: str | None = None
     return dataclasses.replace(cfg, fsd=fsd_train_config(tiny, dtype))
 
 
+def fsdpp_train_config(tiny: bool = False, dtype: str | None = None
+                       ) -> FSDPPConfig:
+    """The compute dtype lives on the single-stage sub-config."""
+    cfg = tiny_fsdpp_config() if tiny else FSDPPConfig()
+    return dataclasses.replace(cfg, fsd=fsd_train_config(tiny, dtype))
+
+
 # family -> (model class, config of (tiny, dtype))
 DETECTORS = {
     "sst": (SSTDetector, sst_train_config),
     "centerpoint": (DynamicCenterPoint, centerpoint_train_config),
     "fsd": (FSD, fsd_train_config),
     "fsd2": (TwoStageFSD, fsd2_train_config),
+    "fsdpp": (FSDPP, fsdpp_train_config),
 }
 
 
@@ -257,6 +278,13 @@ def main(argv=None,
     print(f"dataset: {len(ds)} frames", flush=True)
     model = build_detector(args.model, args.tiny, args.dtype, dev,
                            torch.Generator().manual_seed(args.seed))
+    if args.model == "fsdpp":
+        return train_fsdpp(model, ds, args.work_dir,
+                           total_steps=args.total_steps or 1000,
+                           window=args.seq_window,
+                           ckpt_interval=args.ckpt_interval, seed=args.seed,
+                           resume=not args.no_resume, device=dev,
+                           hooks=hooks)
     return train_detector(model, ds, args.work_dir,
                           total_steps=args.total_steps or 1000,
                           ckpt_interval=args.ckpt_interval,

@@ -30,7 +30,9 @@ def test_port_sources_exist():
             "submission.py", "kitti_eval.py", "detector_eval.py", "test.py",
             "create_submission.py", "sparse_conv.py", "sparse_encoder.py",
             "second.py", "centerpoint_head.py", "centerpoint.py",
-            "cluster.py", "fsd.py", "fsd_two_stage.py"} <= names
+            "cluster.py", "fsd.py", "fsd_two_stage.py", "incremental.py",
+            "seeds.py", "fsdpp.py", "seed_store.py", "routes.py",
+            "seq_trainer.py"} <= names
     assert (ROOT / "objectcentricocccompletion_torch" / "parallel" /
             "train.py").exists()
     csrc = ROOT / "objectcentricocccompletion_torch" / "csrc"
@@ -78,4 +80,7 @@ def test_port_modules_import_without_the_jax_package():
     assert "objectcentricocccompletion_torch.parallel.train" in modules
     assert "objectcentricocccompletion_torch.evalx.evaluator" in modules
     assert "objectcentricocccompletion_torch.tools.test" in modules
+    assert "objectcentricocccompletion_torch.models.fsdpp" in modules
+    assert "objectcentricocccompletion_torch.training.seq_trainer" in \
+        modules
     assert "objectcentricocccompletion_torch.models.centerpoint" in modules

@@ -56,12 +56,58 @@ def test_synthetic_frames_and_samples_equal_the_jax_package(
 
 
 @pytest.mark.parametrize("option", [
-    dict(augment=True), dict(db_sampler=object()), dict(num_sweeps=2),
-    dict(occ_pred_root="occ")])
+    dict(augment=True), dict(db_sampler=object()), dict(num_sweeps=2)])
 def test_options_not_ported_raise(frames, option):
     info, root = frames
     with pytest.raises(NotImplementedError, match=next(iter(option))):
         tfd.FrameDataset(info, root, **option)
+
+
+def write_occ_predictions(info, occ_root, frames=2, files=2, rows=300,
+                          seed=0):
+    """Seeded float32 [rows, 4] occupancy files in ``save_occ``'s layout,
+    ``<root>/<segment>/<ts>/<type>_<id>.bin``, for the first ``frames``
+    frames of ``info``; returns the rows written per frame."""
+    rng = np.random.RandomState(seed)
+    infos = pickle.load(open(info, "rb"))
+    for inf in infos[:frames]:
+        d = os.path.join(occ_root, inf["segment_name"],
+                         str(inf["timestamp"]))
+        os.makedirs(d, exist_ok=True)
+        for j in range(files):
+            occ = np.concatenate([rng.uniform(-8, 8, (rows, 2)),
+                                  rng.uniform(-2, 0, (rows, 1)),
+                                  rng.rand(rows, 1)], -1)
+            occ.astype(np.float32).tofile(os.path.join(d, f"1_{j}.bin"))
+    return [files * rows] * frames + [0] * (len(infos) - frames)
+
+
+@pytest.mark.parametrize("max_points", [4096, 2048])
+def test_occ_pred_root_merges_like_the_jax_package(frames, tmp_path,
+                                                   max_points):
+    """W8: the predicted occupancy points of a frame join its cloud
+    (xyz, the score as intensity, zeros elsewhere); a frame without files
+    is left as it is. The samples equal the JAX package's, subsampled or
+    not."""
+    info, root = frames
+    occ_root = str(tmp_path / "occ")
+    extra = write_occ_predictions(info, occ_root)
+    tds = tfd.FrameDataset(info, root, max_points=max_points, max_gt=8,
+                           occ_pred_root=occ_root)
+    jds = jfd.FrameDataset(info, root, max_points=max_points, max_gt=8,
+                           occ_pred_root=occ_root)
+    infos = pickle.load(open(info, "rb"))
+    for i in range(len(tds)):
+        a = tds.build_sample(i, np.random.RandomState(i))
+        b = jds.build_sample(i, np.random.RandomState(i))
+        assert set(a) == set(b)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        n = min(FRAMES["num_points"] + extra[i], max_points)
+        assert a["points_mask"].sum() == n
+        occ = tds.load_occ_points(infos[i]["segment_name"],
+                                  infos[i]["timestamp"])
+        assert occ.shape == (extra[i], 5) and not occ[:, 4:].any()
 
 
 def test_camera_to_lidar_boxes_matches():
@@ -105,7 +151,7 @@ def test_cli_trains_logs_checkpoints_and_resumes(frames, tmp_path):
     assert ckpt["step"] == 2 and "model" in ckpt and "optimizer" in ckpt
 
 
-@pytest.mark.parametrize("extra", [["fsdpp"], ["sst", "--augment"],
+@pytest.mark.parametrize("extra", [["votenet"], ["sst", "--augment"],
                                    ["sst", "--dataset", "nuscenes"],
                                    ["sst", "--gt-sample", "2"],
                                    ["sst", "--num-sweeps", "1"]])
