@@ -2,7 +2,9 @@
 """Drive the PyTorch port's SST inference, training and evaluation paths,
 its OcOccNet serving, training and evaluation paths, and the inference,
 training and evaluation paths of CenterPoint, of the FSD family and of
-FSD++, and FSDv2 training on predicted occupancy (W8), on one CUDA card.
+FSD++, FSDv2 training on predicted occupancy (W8), the W1 occupancy
+annotator, the data-prep CLI and augmented multi-sweep training, on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -189,10 +191,36 @@ Phases, each of which fails the run (non-zero exit) on any error:
     ``save_occ``'s layout (``<root>/<segment>/<ts>/<type>_<id>.bin``, one
     per GT box) under each frame's segment and timestamp: the merged point
     counts, finite losses, ms/step.
-28. Print the kernels' JSON line (the bf16 and the float32 tensor-core
+28. W1: ``OccAnnotator`` at the size of ``tools/benchmark.py annotate``'s
+    scene (``tools_occ/scenes.py::make_realistic_scene``: 100 frames of
+    160,000 points and 150-400 on a car, five LiDARs, TOP 64 x 2650) on
+    the card and on the CPU: the grids may differ only where the margin
+    rule of ``tools_occ/annotate.py`` allows (a decision within 4 float32
+    ulps of its boundary in a frame that decides the any; recomputed in
+    float64 on the host); the same for the TOP LiDAR's visibility test of
+    every voxel with its range images scaled by ``ANNOTATE_BLOCK_SCALE``
+    (blocked and free voxels). Prints ms per tracklet with the host gather,
+    the visibility test (device time by CUDA events) and the npz write,
+    the peak memory, and 0 window-attention launches.
+29. The data-prep CLI end to end: ``scenes.write_annotation_dataset``
+    writes two segments of 10 ``write_synthetic_frames`` frames, their raw
+    frame pkls (five LiDARs at Waymo's sizes) and GT / predicted tracklet
+    ``.bin`` files (``evalx/waymo_bin.py``); ``tools/create_data.py
+    occ_annotate --workers 2`` runs in subprocesses on the card and on the
+    CPU (the npz files equal), then ``tracklets``; the tracklet dataset
+    loads in ``TrackletDataset`` with the card's grids.
+30. Augmented multi-sweep training: ``tools/train.py sst`` at
+    ``SSTDetectorConfig()`` (float32) with ``--augment --gt-sample 2
+    --num-sweeps 2 --disable-aug-after 2`` for 4 steps on phase 5's
+    frames: points 6 wide (the VFE's first Dense 12 wide), 12 forward and
+    12 backward launches per level per step, finite losses, augmentation
+    and GT paste off from step 2 (counted from 0); prints each step's ms
+    and the host ms per frame of augmentation and paste.
+31. Print the kernels' JSON line (the bf16 and the float32 tensor-core
     kernels, each level apart; launches of the bf16 frames and bf16
-    training, and of the float32 frame, float32 training and the SST
-    evaluation), then as the last line ``{"ok": true, "device": {...}}``.
+    training, and of the float32 frame, float32 and augmented training and
+    the SST evaluation), then as the last line ``{"ok": true, "device":
+    {...}}``.
 
 It exits non-zero, printing no result, where ``torch.cuda.is_available()``
 is false or the port's package is missing.
@@ -200,10 +228,12 @@ is false or the port's package is missing.
 import collections
 import contextlib
 import dataclasses
+import glob
 import io
 import json
 import os
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -211,6 +241,7 @@ import time
 import numpy as np
 import torch
 
+from objectcentricocccompletion_torch.data import frame_dataset as tfd
 from objectcentricocccompletion_torch.data.frame_dataset import (
     FrameDataset, write_synthetic_frames)
 from objectcentricocccompletion_torch.data.loader import (
@@ -250,6 +281,7 @@ from objectcentricocccompletion_torch.training.seq_trainer import (
     SeqWindow, make_seq_train_step)
 from objectcentricocccompletion_torch.training.trainer import (
     CheckpointManager)
+from objectcentricocccompletion_torch.tools_occ import annotate, scenes
 from objectcentricocccompletion_torch.utils.device import card_info
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s; tensor-core
@@ -451,6 +483,24 @@ FSDPP_ROUTE_FLIPS = 1e-5
 # W8: predicted occupancy points per GT box in save_occ's layout, and steps
 W8_OCC_ROWS = 512
 W8_TRAIN_STEPS = 4
+# W1: timed tracklets of the benchmark scene on the card (after one that
+# stages the range images). Card against CPU: the margin rule of
+# tools_occ/annotate.py (a voxel may differ only where a decision lies
+# within 4 float32 ulps of its boundary in a frame that decides the any)
+ANNOTATE_TIMED = 2
+# the TOP LiDAR's range images scaled by this for a visibility check with
+# blocked and free voxels (the benchmark scene's voxels are all free)
+ANNOTATE_BLOCK_SCALE = 0.2
+# the data-prep CLI's inputs: two segments of 10 frames, two car tracklets
+# each, the five LiDARs at Waymo's sizes
+ANNOTATE_DATA = dict(segments=2, frames_per_segment=10,
+                     tracklets_per_segment=2, num_points=40000,
+                     num_boxes=20)
+CREATE_DATA_TIMEOUT = 300
+# augmented multi-sweep SST training through the CLI
+AUG_TRAIN_STEPS = 4
+AUG_ARGS = ("--augment", "--gt-sample", "2", "--num-sweeps", "2",
+            "--disable-aug-after", "2")
 
 
 def log(msg):
@@ -2553,6 +2603,295 @@ def phase_w8_training(dev, frames_dir, work):
         f"window-attention launches 0; card {card_info()}")
 
 
+def annotate_visibility_check(dev, boxes, frames):
+    """The TOP LiDAR's visibility test over every voxel of the benchmark
+    scene's grid, its range images scaled by ``ANNOTATE_BLOCK_SCALE`` so
+    that some voxels are blocked in every frame: the card against the CPU
+    under the margin rule. Returns (voxels, free share, differing,
+    unexplained)."""
+    size = boxes[:, 3:6].max(0)
+    dims = np.maximum(np.ceil(size / 0.2).astype(np.int32), 1)
+    idx = np.stack(np.nonzero(np.ones(tuple(dims), bool)), -1)
+    min_bound = np.array([-size[0] / 2, -size[1] / 2, 0.0])
+    centers = ((idx + 0.5) * 0.2 + min_bound).astype(np.float32)
+    extr, incl, ri = (np.stack(a, 0) for a in zip(
+        *[annotate.staged_inputs(f, "TOP") for f in frames]))
+    ri = ri * np.float32(ANNOTATE_BLOCK_SCALE)
+    inputs = (centers, np.asarray(boxes, np.float32), extr, incl, ri)
+    vis = {where: annotate._range_image_visibility(
+        *(torch.from_numpy(a).to(where) for a in inputs)).cpu().numpy()
+        for where in (dev, "cpu")}
+    diff = np.nonzero(vis[dev] != vis["cpu"])[0]
+    bad = 0
+    if len(diff):
+        sub = (centers[diff],) + inputs[1:]
+        bad = int(annotate.unexplained(
+            vis[dev][diff], vis["cpu"][diff],
+            [annotate.decision_margins(*sub)]).sum())
+    return len(centers), float((vis["cpu"] == 2).mean()), len(diff), bad
+
+
+def phase_annotator(dev):
+    """W1 at the benchmark scene's full size (``scenes.make_realistic_
+    scene``: 100 frames of 160,000 points, five LiDARs, TOP 64 x 2650)
+    through ``OccAnnotator`` on the card and on the CPU: the grids must
+    agree under the margin rule; ms per tracklet with its split; no
+    window-attention launch."""
+    boxes, ts_list, get_points, get_raw_frame = scenes.make_realistic_scene()
+    frames = [get_raw_frame(ts) for ts in ts_list]
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.reset_peak_memory_stats(dev)
+        wa.LAUNCHES.clear()
+        wa.BWD_LAUNCHES.clear()
+        card = annotate.OccAnnotator(get_points, get_raw_frame,
+                                     os.path.join(tmp, "card"),
+                                     overwrite=True, device=dev)
+        t0 = time.perf_counter()
+        path = card.annotate_trk("seg", "trk", boxes, ts_list)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        occ_card = np.load(path)["occ"]
+        for k in card.timing:
+            card.timing[k] = 0.0
+        times = []
+        for i in range(ANNOTATE_TIMED):
+            t0 = time.perf_counter()
+            card.annotate_trk("seg", f"trk{i}", boxes, ts_list)
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        no_kernel_launches("the annotator")
+        split = {k: (v * 1e3 if k.endswith("_s") else v) / ANNOTATE_TIMED
+                 for k, v in card.timing.items()}
+        t0 = time.perf_counter()
+        cpu = annotate.OccAnnotator(get_points, get_raw_frame,
+                                    os.path.join(tmp, "cpu"), device="cpu")
+        occ_cpu = np.load(cpu.annotate_trk("seg", "trk", boxes,
+                                           ts_list))["occ"]
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+    diff = annotate.grid_differences(occ_card, occ_cpu, boxes, frames, 0.2)
+    counts = [int((occ_card == v).sum()) for v in (0, 1, 2)]
+    log(f"annotator: grid {list(occ_card.shape)}, unknown/occupied/free "
+        f"{counts}, card vs CPU {diff} (bar: no unexplained voxel)")
+    if diff["unexplained"]:
+        raise AssertionError(f"annotator grids, card vs CPU: {diff}")
+    n, free, differ, bad = annotate_visibility_check(dev, boxes, frames)
+    log(f"annotator: TOP visibility with range images x "
+        f"{ANNOTATE_BLOCK_SCALE} over {n} voxels x {len(frames)} frames: "
+        f"free {free:.3f}, card vs CPU differ {differ}, unexplained {bad}")
+    if bad or not 0.05 < free < 0.95:
+        raise AssertionError(f"annotator visibility check: {differ} differ, "
+                             f"{bad} unexplained, free {free}")
+    log(f"annotator: {statistics.median(times):.3f} ms/tracklet on the card "
+        f"(median of {ANNOTATE_TIMED} after one of {first_ms:.3f} ms that "
+        f"staged the range images; all {[round(x, 3) for x in times]}): "
+        f"host gather and voxelize {split['gather_s']:.3f}, visibility "
+        f"{split['visibility_s']:.3f} (device {split['device_ms']:.3f}), "
+        f"npz write {split['write_s']:.3f} ms per tracklet; peak memory "
+        f"{peak:.3f} GiB; the CPU's tracklet {cpu_ms:.3f} ms; "
+        f"window-attention launches 0; card {card_info()}")
+
+
+def create_data_cli(argv, what):
+    """``tools/create_data.py`` in a subprocess from the checkout's root;
+    returns its output."""
+    res = subprocess.run(
+        [sys.executable, "-m",
+         "objectcentricocccompletion_torch.tools.create_data"] + argv,
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=CREATE_DATA_TIMEOUT)
+    if res.returncode:
+        raise AssertionError(f"{what}: exit {res.returncode}\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    return res.stdout
+
+
+def phase_data_prep(dev):
+    """The data-prep CLI end to end: ``occ_annotate --workers 2`` on the
+    card and on the CPU (the npz files equal), then ``tracklets``; the
+    tracklet dataset loads in ``TrackletDataset`` with the card's grids."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        p = scenes.write_annotation_dataset(os.path.join(tmp, "data"),
+                                            **ANNOTATE_DATA)
+        write_s = time.perf_counter() - t0
+        common = ["--gt-bin", p["gt_bin"], "--infos", p["infos"],
+                  "--data-root", p["data_root"], "--raw-root", p["raw_root"],
+                  "--workers", "2"]
+        grids, walls = {}, {}
+        for where in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"occ_{where}")
+            t0 = time.perf_counter()
+            create_data_cli(["occ_annotate", *common, "--out-dir", out,
+                             "--device", where], f"occ_annotate {where}")
+            walls[where] = time.perf_counter() - t0
+            grids[where] = {os.path.relpath(f, out): np.load(f)["occ"]
+                            for f in sorted(glob.glob(
+                                os.path.join(out, "*", "*.npz")))}
+        n_trk = ANNOTATE_DATA["segments"] * \
+            ANNOTATE_DATA["tracklets_per_segment"]
+        if sorted(grids["cuda"]) != sorted(grids["cpu"]) or \
+                len(grids["cuda"]) != n_trk:
+            raise AssertionError(f"occ_annotate files: card "
+                                 f"{sorted(grids['cuda'])}, CPU "
+                                 f"{sorted(grids['cpu'])}")
+        unequal = [k for k, g in grids["cuda"].items()
+                   if g.dtype != grids["cpu"][k].dtype
+                   or g.tobytes() != grids["cpu"][k].tobytes()]
+        counts = np.sum([[int((g == v).sum()) for v in (0, 1, 2)]
+                         for g in grids["cuda"].values()], 0).tolist()
+        log(f"data prep: {n_trk} tracklets annotated by the CLI with "
+            f"--workers 2 in {walls['cuda']:.1f} s on the card, "
+            f"{walls['cpu']:.1f} s on the CPU (inputs written in "
+            f"{write_s:.1f} s); unknown/occupied/free {counts}; npz files "
+            f"that differ: {unequal}")
+        if unequal or not counts[1] or not counts[2]:
+            raise AssertionError(f"occ_annotate card vs CPU: {unequal} "
+                                 f"differ; counts {counts}")
+        trk = os.path.join(tmp, "trk")
+        t0 = time.perf_counter()
+        create_data_cli(["tracklets", "--pred-bin", p["pred_bin"],
+                         "--gt-bin", p["gt_bin"], "--infos", p["infos"],
+                         "--data-root", p["data_root"], "--out-dir", trk],
+                        "tracklets")
+        trk_s = time.perf_counter() - t0
+        ds = TrackletDataset(
+            proposals_file=os.path.join(trk, "proposals.pkl"),
+            gt_candidates_file=os.path.join(trk, "gt_candidates.pkl"),
+            pose_file=os.path.join(trk, "poses.pkl"),
+            occ_anno_root=os.path.join(tmp, "occ_cuda"),
+            cfg=train_cli.ococc_train_config(), min_tracklet_length=1,
+            min_tracklet_points=1)
+        s = ds.build_sample(0, np.random.RandomState(0))
+        if len(ds) != n_trk or not s["points_mask"].any() or \
+                not s["gt_valid"].any() or not s["occ_score"] > 0:
+            raise AssertionError(f"tracklet dataset: {len(ds)} tracklets, "
+                                 f"sample {s['meta']}, occ score "
+                                 f"{s['occ_score']}")
+    log(f"data prep: tracklets CLI {trk_s:.1f} s; TrackletDataset loads "
+        f"{len(ds)} tracklets, a sample with "
+        f"{int(s['points_mask'].sum())} points and occupancy score "
+        f"{float(s['occ_score'])}")
+
+
+def step_launches(name, t0, stamps, expect):
+    """Each step's ms from ``stamps`` (``(time, forward counts, backward
+    counts)`` after every step, the run started at ``t0``); every step must
+    launch ``expect`` forward and backward kernels per level."""
+    prev, times = (t0, {}, {}), []
+    for step, (now, f, b) in enumerate(stamps, 1):
+        df = {T: n - prev[1].get(T, 0) for T, n in f.items()}
+        db = {T: n - prev[2].get(T, 0) for T, n in b.items()}
+        if df != expect or db != expect:
+            raise AssertionError(f"{name} step {step}: forward {df}, "
+                                 f"backward {db}, expected {expect}")
+        times.append((now - prev[0]) * 1e3)
+        prev = (now, f, b)
+    return times
+
+
+def phase_aug_training(dev, frames_dir, work):
+    """``tools/train.py sst`` at ``SSTDetectorConfig()`` (float32) with
+    ``AUG_ARGS`` for ``AUG_TRAIN_STEPS`` steps on the SST training phase's
+    frames: 6-wide points, 12 forward and 12 backward launches per level
+    per step, finite losses, augmentation and GT paste off from step 2
+    (counted from 0); the host ms per frame of both beside the step's ms.
+    Returns the launch counts (forward, backward)."""
+    infos = os.path.join(frames_dir, "infos.pkl")
+    per_level = 2 * bench.sst_config().sst.num_blocks
+    expect = {32: per_level, 144: per_level}
+    build, augment, paste = (tfd.FrameDataset.build_sample,
+                             tfd.FrameDataset._augment, tfd.apply_db_sample)
+    host = collections.Counter()
+    draws = []
+
+    def timed(key, fn):
+        def run(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            host[key] += time.perf_counter() - t
+            return out
+        return run
+
+    def record(self, index, rng):
+        before = dict(host)
+        s = timed("build", build)(self, index, rng)
+        draws.append((self.augment, self.db_sampler is not None,
+                      s["points"].shape, {k: host[k] - before.get(k, 0.0)
+                                          for k in host}))
+        return s
+
+    stamps = []
+
+    def hook(step, metrics):
+        torch.cuda.synchronize()
+        stamps.append((time.perf_counter(), dict(wa.LAUNCHES),
+                       dict(wa.BWD_LAUNCHES)))
+
+    argv = ["sst", "--infos", infos, "--data-root", frames_dir,
+            "--total-steps", str(AUG_TRAIN_STEPS), "--log-interval", "1",
+            "--work-dir", os.path.join(work, "aug"), "--device", "cuda",
+            "--seed", "0", *AUG_ARGS]
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    def pasting(sample, sampler):
+        out = timed("paste", paste)(sample, sampler)
+        host["pasted"] += int(out["gt_valid"].sum() -
+                              sample["gt_valid"].sum())
+        return out
+
+    tfd.FrameDataset.build_sample = record
+    tfd.FrameDataset._augment = timed("augment", augment)
+    tfd.apply_db_sample = pasting
+    try:
+        wa.LAUNCHES.clear()
+        wa.BWD_LAUNCHES.clear()
+        t0 = time.perf_counter()
+        done = train_cli.main(argv, hooks=[hook])
+    finally:
+        tfd.FrameDataset.build_sample = build
+        tfd.FrameDataset._augment = augment
+        tfd.apply_db_sample = paste
+    fwd, bwd = dict(wa.LAUNCHES), dict(wa.BWD_LAUNCHES)
+    train = draws[-AUG_TRAIN_STEPS:]
+    flags = [d[:2] for d in train]
+    want = [(True, True)] * 2 + [(False, False)] * (AUG_TRAIN_STEPS - 2)
+    if done != AUG_TRAIN_STEPS or flags != want or \
+            any(d[2][1] != 6 for d in draws):
+        raise AssertionError(f"augmented training: {done} steps, draws "
+                             f"{[d[:3] for d in draws]}")
+    times = step_launches("augmented training", t0, stamps, expect)
+    rows = [json.loads(line) for line in open(
+        os.path.join(work, "aug", "metrics.jsonl"))]
+    keys = ("loss", "loss_cls", "loss_bbox", "loss_dir", "grad_norm")
+    if len(rows) != AUG_TRAIN_STEPS or not all(
+            abs(r[k]) < float("inf") for r in rows for k in keys):
+        raise AssertionError(f"augmented training metrics {rows}")
+    trained = torch.load(os.path.join(work, "aug", "ckpt",
+                                      f"step_{AUG_TRAIN_STEPS}.pt"),
+                         map_location="cpu", weights_only=True)["model"]
+    width = trained["backbone.vfe.vfe_0.weight"].shape[1]
+    if width != 6 + 6:
+        raise AssertionError(f"the VFE's first Dense takes {width} inputs")
+    on = [d[3] for d in train if d[0]]
+    aug_ms = [1e3 * d.get("augment", 0.0) for d in on]
+    paste_ms = [1e3 * d.get("paste", 0.0) for d in on]
+    build_ms = [1e3 * d[3]["build"] for d in train]
+    log(f"augmented training (sst float32, {' '.join(AUG_ARGS)}): "
+        f"{AUG_TRAIN_STEPS} steps at full width, ms/step "
+        f"{[round(x, 3) for x in times]} (median from step "
+        f"{TRAIN_TIMED_FROM}: {statistics.median(times[TRAIN_TIMED_FROM - 1:]):.3f}"
+        f"); host ms per frame while on (steps 1-2): augmentation "
+        f"{[round(x, 3) for x in aug_ms]}, GT paste "
+        f"{[round(x, 3) for x in paste_ms]} ("
+        f"{[int(d.get('pasted', 0)) for d in on]} objects pasted); the "
+        f"whole sample build (the frame, its sweeps in its pose, paste "
+        f"and augmentation) "
+        f"{[round(x, 3) for x in build_ms]} ms per frame; points "
+        f"{train[0][2]}, VFE "
+        f"input {width}; losses {[round(r['loss'], 4) for r in rows]}; "
+        f"launches forward {fwd} backward {bwd}; card {card_info()}")
+    return fwd, bwd
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -2656,10 +2995,19 @@ def main():
             t = time.perf_counter()
             run()
             log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_annotator(dev)
+        log(f"phase annotator: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_data_prep(dev)
+        log(f"phase data prep: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        aug_fwd, aug_bwd = phase_aug_training(dev, cp_frames, fsd_work)
+        log(f"phase augmented training: {time.perf_counter() - t:.1f} s")
 
     # launches on the model's paths: bf16 inference and training run the
-    # bf16 kernels, the float32 frame, float32 training and the SST
-    # evaluation the 3xTF32 ones
+    # bf16 kernels, the float32 frame, float32 and augmented training and
+    # the SST evaluation the 3xTF32 ones
     src = "objectcentricocccompletion_torch/csrc/"
     fwd_tpu = "objectcentricocccompletion_tpu/ops/pallas_attention.py:25"
     bwd_tpu = ("benchmarks/repro_attn_bwd.py:124 (_attn_bwd_kernel) and :40 "
@@ -2672,9 +3020,9 @@ def main():
              train_bwd),
             (torch.float32, "fp32", "window_attention.cu",
              "window_attention_bwd.cu",
-             {T: fp32_fwd[T] + fp32_train_fwd[T] + eval_fwd[T]
+             {T: fp32_fwd[T] + fp32_train_fwd[T] + eval_fwd[T] + aug_fwd[T]
               for _, T in ATTN_SHAPES},
-             fp32_train_bwd)):
+             {T: fp32_train_bwd[T] + aug_bwd[T] for _, T in ATTN_SHAPES})):
         for W, T in ATTN_SHAPES:
             kernels.append(dict(
                 name=f"window_attention_{tag}_T{T}", route="cuda",

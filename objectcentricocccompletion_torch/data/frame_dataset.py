@@ -12,9 +12,11 @@ save_occ``, float32 ``[K, 4]`` files under ``<root>/<segment>/<ts>/``) join
 the frame's cloud as points whose intensity is the occupancy score; and
 ``sequences``, the frames of each segment in time order (FSD++).
 
-Not ported yet, and refused with ``NotImplementedError``: the geometry
-augmentation (``augment``), GT copy-paste (``db_sampler``) and multi-sweep
-loading (``num_sweeps``, which widens the points).
+The training pipeline: multi-sweep loading (``num_sweeps``, which adds a
+time-lag column: the points are ``use_dim + 1`` wide), GT copy-paste
+(``db_sampler``, ``data/dbsampler.py``) and the geometry augmentation
+(``augment``), in the JAX package's order and draw for draw the same with
+the same ``RandomState``.
 """
 from __future__ import annotations
 
@@ -23,6 +25,9 @@ import os
 import pickle
 
 import numpy as np
+
+from .dbsampler import apply_db_sample
+from .tracklet_dataset import apply_flip, apply_rot_scale_trans
 
 CLASS_MAP = {"Car": 0, "Pedestrian": 1, "Cyclist": 2}
 
@@ -65,13 +70,22 @@ class FrameDataset:
                  max_points: int = 160000, max_gt: int = 128,
                  occ_pred_root: str | None = None, load_dim: int = 6,
                  use_dim: int = 5, db_sampler=None, augment: bool = False,
-                 num_sweeps: int = 0):
-        refused = {"db_sampler": db_sampler is not None,
-                   "augment": bool(augment), "num_sweeps": num_sweeps > 0}
-        for name, asked in refused.items():
-            if asked:
-                raise NotImplementedError(
-                    f"FrameDataset option {name!r} is not ported yet")
+                 flip_ratio_horizontal: float = 0.5,
+                 flip_ratio_vertical: float = 0.0,
+                 rot_range=(-0.78539816, 0.78539816),
+                 scale_range=(0.95, 1.05),
+                 translation_std=(0.0, 0.0, 0.0),
+                 pc_range=None, num_sweeps: int = 0):
+        """``augment=True`` turns on the reference's frame augmentation
+        (``configs/_base_/datasets/waymo-*.py``: RandomFlip3D ->
+        GlobalRotScaleTrans(rot +-pi/4, scale [0.95, 1.05]) ->
+        Points/ObjectRangeFilter) through ``tracklet_dataset.apply_flip`` and
+        ``apply_rot_scale_trans``. ``pc_range`` (6 floats) turns on the range
+        filters: points outside are masked out and boxes whose BEV centre
+        leaves the range are invalidated. ``db_sampler`` (a
+        ``dbsampler.DBSampler``) pastes GT crops before the augmentation.
+        ``num_sweeps`` > 0 appends up to that many earlier sweeps of the
+        frame's ``info["sweeps"]`` and a time-lag column."""
         self.infos = _load_pkl(info_path)
         self.data_root = data_root
         self.max_points = max_points
@@ -79,6 +93,77 @@ class FrameDataset:
         self.occ_pred_root = occ_pred_root
         self.load_dim = load_dim
         self.use_dim = use_dim
+        self.db_sampler = db_sampler
+        self.augment = augment
+        self.flip_ratio_horizontal = flip_ratio_horizontal
+        self.flip_ratio_vertical = flip_ratio_vertical
+        self.rot_range = tuple(rot_range)
+        self.scale_range = tuple(scale_range)
+        self.translation_std = tuple(translation_std)
+        self.pc_range = None if pc_range is None else tuple(pc_range)
+        self.num_sweeps = num_sweeps
+
+    @property
+    def point_dim(self) -> int:
+        """Columns of ``build_sample``'s points: ``use_dim``, plus the
+        time-lag column with sweeps."""
+        return self.use_dim + (self.num_sweeps > 0)
+
+    def _cat_sweeps(self, pts: np.ndarray, info: dict) -> np.ndarray:
+        """Concatenate up to ``num_sweeps`` earlier sweeps into the frame
+        (the reference's ``LoadPointsFromMultiSweepsWaymo``,
+        ``datasets/pipelines/loading.py:703-871``): each sweep's points go
+        past ego -> world (the sweep's pose) -> current ego (the inverse of
+        this frame's pose) in float64, and a trailing time-lag column holds
+        0 for the frame and ``-(idx+1)`` for its idx-th sweep. A frame
+        without sweeps only gains the zero column."""
+        out = [np.concatenate(
+            [pts, np.zeros((len(pts), 1), np.float32)], -1)]
+        curr_pose = np.asarray(info.get("pose", np.eye(4)), np.float64)
+        world2curr = np.linalg.inv(curr_pose)
+        for idx, sweep in enumerate(info.get("sweeps", [])):
+            if idx >= self.num_sweeps:
+                break
+            spath = os.path.join(
+                os.path.dirname(os.path.join(self.data_root,
+                                             info["point_cloud"]
+                                             ["velodyne_path"])),
+                os.path.basename(sweep["velodyne_path"]))
+            sp = np.fromfile(spath, np.float32).reshape(-1, self.load_dim)
+            sp = sp[:, :self.use_dim]
+            past = np.asarray(sweep["pose"], np.float64)
+            world = sp[:, :3] @ past[:3, :3].T + past[:3, 3]
+            sp[:, :3] = (world @ world2curr[:3, :3].T
+                         + world2curr[:3, 3]).astype(np.float32)
+            lag = np.full((len(sp), 1), -(idx + 1), np.float32)
+            out.append(np.concatenate([sp, lag], -1))
+        return np.concatenate(out, 0)
+
+    def _augment(self, sample: dict, rng: np.random.RandomState) -> dict:
+        """Geometry augmentation of the padded sample, after the GT paste
+        (the reference's ObjectSample -> flip -> rot/scale order); padded
+        rows transform harmlessly under their masks."""
+        pts = sample["points"]
+        boxes = sample["gt_boxes"]
+        if rng.rand() < self.flip_ratio_horizontal:
+            apply_flip(pts, [boxes], True)
+        if rng.rand() < self.flip_ratio_vertical:
+            apply_flip(pts, [boxes], False)
+        ang = rng.uniform(*self.rot_range)
+        sc = rng.uniform(*self.scale_range)
+        std = np.asarray(self.translation_std, np.float64)
+        tr = (rng.normal(scale=std, size=3) if std.any()
+              else np.zeros(3)).astype(np.float32)
+        apply_rot_scale_trans(pts, [boxes], ang, sc, tr)
+        if self.pc_range is not None:
+            lo = np.asarray(self.pc_range[:3], np.float32)
+            hi = np.asarray(self.pc_range[3:], np.float32)
+            sample["points_mask"] &= np.all(
+                (pts[:, :3] >= lo) & (pts[:, :3] <= hi), axis=-1)
+            ctr = boxes[:, :2]
+            sample["gt_valid"] &= np.all(
+                (ctr >= lo[:2]) & (ctr <= hi[:2]), axis=-1)
+        return sample
 
     def __len__(self):
         return len(self.infos)
@@ -96,7 +181,8 @@ class FrameDataset:
 
     def load_occ_points(self, segment: str, ts) -> np.ndarray:
         """Every predicted occupancy centre of a frame -> [K, use_dim]
-        points: xyz, the occupancy score as intensity, zeros elsewhere."""
+        points: xyz, the occupancy score as intensity, zeros elsewhere (and
+        in the time-lag column that sweeps add)."""
         d = os.path.join(self.occ_pred_root, segment, str(ts))
         rows = [np.fromfile(f, np.float32).reshape(-1, 4)
                 for f in glob.glob(os.path.join(d, "*.bin"))]
@@ -109,20 +195,24 @@ class FrameDataset:
 
     def build_sample(self, index: int, rng: np.random.RandomState) -> dict:
         """Frame ``index`` padded to the budgets: ``points`` [max_points,
-        use_dim] (a random subset from ``rng`` where the frame, with its
-        predicted occupancy points, has more),
+        point_dim] (a random subset from ``rng`` where the frame, with its
+        sweeps and predicted occupancy points, has more),
         ``points_mask``, ``gt_boxes`` [max_gt, 7], ``gt_labels``,
-        ``gt_valid``."""
+        ``gt_valid``; then the GT paste and the augmentation, each where it
+        is on."""
         info = self.infos[index]
         vpath = info["point_cloud"]["velodyne_path"]
         pts = np.fromfile(os.path.join(self.data_root, vpath),
                           np.float32).reshape(-1, self.load_dim)
         pts = pts[:, :self.use_dim]
+        if self.num_sweeps > 0:
+            pts = self._cat_sweeps(pts, info)
         if self.occ_pred_root is not None:
             info_seg = info.get("segment_name",
                                 info["point_cloud"].get("segment_name", ""))
-            pts = np.concatenate([pts, self.load_occ_points(
-                info_seg, info.get("timestamp", 0))], 0)
+            occ = self.load_occ_points(info_seg, info.get("timestamp", 0))
+            occ = np.pad(occ, ((0, 0), (0, pts.shape[1] - occ.shape[1])))
+            pts = np.concatenate([pts, occ], 0)
 
         rect = np.asarray(info["calib"]["R0_rect"], np.float64)
         trv2c = np.asarray(info["calib"]["Tr_velo_to_cam"], np.float64)
@@ -141,8 +231,13 @@ class FrameDataset:
         gt_boxes[:m] = boxes[:m]
         gt_labels[:m] = labels[:m]
         gt_valid = np.arange(self.max_gt) < m
-        return dict(points=points, points_mask=mask, gt_boxes=gt_boxes,
-                    gt_labels=gt_labels, gt_valid=gt_valid)
+        sample = dict(points=points, points_mask=mask, gt_boxes=gt_boxes,
+                      gt_labels=gt_labels, gt_valid=gt_valid)
+        if self.db_sampler is not None:
+            sample = apply_db_sample(sample, self.db_sampler)
+        if self.augment:
+            sample = self._augment(sample, rng)
+        return sample
 
 
 def write_synthetic_frames(root: str, num_frames: int = 8,

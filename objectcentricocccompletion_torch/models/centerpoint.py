@@ -21,7 +21,6 @@ from . import centerpoint_head as cph
 from .layers import he_normal_, init_flax_like_
 from .second import SECOND, SECONDFPN
 from .sparse_encoder import SparseEncoder
-from .sst import POINT_DIM
 from .vfe import DynamicVFE
 
 
@@ -39,6 +38,10 @@ class CenterPointConfig:
     # gather layout computes in float32 whatever they say, in both packages
     encoder_dtype: str = "bfloat16"
     encoder_remat: bool = True
+    # point columns: x, y, z and two features (intensity and elongation on
+    # Waymo), plus the time lag of multi-sweep frames (6). The JAX package
+    # reads it off the input, whose width the port's first Dense fixes
+    point_dim: int = 5
 
     @property
     def grid_shape(self) -> tuple:
@@ -56,9 +59,9 @@ def tiny_centerpoint_config() -> CenterPointConfig:
 
 
 class DynamicCenterPoint(nn.Module):
-    """``DynamicCenterPoint(cfg, device, generator)``: points carry x, y, z
-    and two features (``POINT_DIM``, as the frame datasets and
-    ``synth_frame`` give them). Built on the CPU, its weights drawn from
+    """``DynamicCenterPoint(cfg, device, generator)``: points carry
+    ``cfg.point_dim`` columns (x, y, z and two features, as the frame
+    datasets and ``synth_frame`` give them; a time lag with sweeps). Built on the CPU, its weights drawn from
     ``generator`` as flax initialises them when one is given, then moved to
     ``device`` (``cuda`` unless the caller asks for the CPU)."""
 
@@ -67,7 +70,7 @@ class DynamicCenterPoint(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = c = cfg
-        self.vfe = DynamicVFE(POINT_DIM, feat_channels=c.vfe_channels,
+        self.vfe = DynamicVFE(c.point_dim, feat_channels=c.vfe_channels,
                               voxel_size=c.voxel_size, pc_range=c.pc_range)
         scale = max(c.vfe_channels[-1] // 16, 1)
         out_c = 8 * scale * 16

@@ -53,7 +53,6 @@ from .layers import (LN_EPS, Mlp, VfeLayer, he_normal_, init_flax_like_,
                      layer_norm_one_pass)
 from .sparse_encoder import GatherCtx, SparseBasicBlock, SubMConv
 from .sir import _reciprocal
-from .sst import POINT_DIM
 from .vfe import DynamicVFE
 
 # LayerNorm epsilon of the seg head and the cluster head: the reference's
@@ -121,6 +120,10 @@ class FSDConfig:
     virtual_voxel_size: Tuple[float, float, float] = (0.4, 0.4, 0.4)
     max_virtual_voxels: int = 8192
     virtual_mixer_channels: int = 64
+    # point columns: x, y, z and two features (intensity and elongation on
+    # Waymo), plus the time lag of multi-sweep frames (6). The JAX package
+    # reads it off the input, whose width the port's first Dense fixes
+    point_dim: int = 5
 
     @property
     def num_classes(self) -> int:
@@ -363,7 +366,7 @@ class Grouping(NamedTuple):
 
 class FSD(nn.Module):
     """``FSD(cfg, device, generator)``: points carry x, y, z and
-    ``POINT_DIM - 3`` features. Built on the CPU, its weights drawn from
+    ``cfg.point_dim - 3`` features. Built on the CPU, its weights drawn from
     ``generator`` as flax initialises them when one is given, then moved to
     ``device`` (``cuda`` unless the caller asks for the CPU)."""
 
@@ -374,7 +377,7 @@ class FSD(nn.Module):
         self.cfg = c = cfg
         ncls = c.num_classes
         self.dtype = dt = getattr(torch, c.compute_dtype)
-        self.vfe = DynamicVFE(POINT_DIM, feat_channels=c.vfe_channels,
+        self.vfe = DynamicVFE(c.point_dim, feat_channels=c.vfe_channels,
                               voxel_size=c.voxel_size, pc_range=c.pc_range,
                               dtype=dt)
         self.unet = SparseUNet(c.vfe_channels[-1], c.unet_channels,
@@ -390,7 +393,7 @@ class FSD(nn.Module):
             head_in = c.sir_blocks * sum(c.sir_channels)
         else:
             hid = tuple(c.virtual_proj_hidden)
-            self.virtual_proj = Mlp(pf + 3 + ncls + POINT_DIM - 3, hid,
+            self.virtual_proj = Mlp(pf + 3 + ncls + c.point_dim - 3, hid,
                                     act="gelu", dtype=dt)
             self.ori_proj = Mlp(pf, hid, act="gelu", dtype=dt)
             self.mixer1 = SubMConv(hid[-1], c.virtual_mixer_channels, dt)
@@ -596,7 +599,7 @@ class FSD(nn.Module):
 
     def forward(self, points: torch.Tensor, mask: torch.Tensor,
                 grouping: Grouping | None = None) -> dict:
-        """points [N, POINT_DIM] float32, mask [N] bool -> dict of
+        """points [N, cfg.point_dim] float32, mask [N] bool -> dict of
         ``seg_logits`` [N, ncls], ``votes`` [N, ncls, 3], ``point_valid``,
         ``cls`` [C, T] task logits, ``reg_tasks`` [C, T, 8],
         ``boxes_tasks`` [C, T, 7], ``boxes`` [C, 7] (each cluster's own

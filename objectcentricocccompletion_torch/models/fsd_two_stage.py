@@ -19,7 +19,6 @@ from ..utils.device import resolve_device
 from .fsd import FSD, FSDConfig, Grouping, fsd_loss, tiny_fsd_config
 from .layers import Mlp, he_normal_, init_flax_like_
 from .sir import SIREncoder
-from .sst import POINT_DIM
 
 # f_cluster of a pooled point: box-local xyz (3), distances to the six
 # faces (6), in the margin only (1), offset from the RoI's bottom centre (3)
@@ -69,7 +68,7 @@ class TwoStageFSD(nn.Module):
         dt = getattr(torch, c.fsd.compute_dtype)
         self.stage1 = FSD(c.fsd, device="cpu")
         self.roi_encoder = SIREncoder(
-            POINT_DIM - 3, ROI_GEO_DIM, num_blocks=c.num_blocks,
+            c.fsd.point_dim - 3, ROI_GEO_DIM, num_blocks=c.num_blocks,
             feat_channels=c.feat_channels, rel_mlp_hidden=(8, 16),
             xyz_normalizer=(20.0, 20.0, 4.0), geo_input=True, act="gelu",
             dtype=dt)

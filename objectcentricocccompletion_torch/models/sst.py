@@ -51,6 +51,10 @@ class SSTConfig:
     # max_windows / 4)
     max_small_windows: int | None = None
     max_large_windows: int | None = None
+    # point columns: x, y, z and two features (intensity and elongation on
+    # Waymo), plus the time lag of multi-sweep frames (6). The JAX package
+    # reads it off the input, whose width the port's first Dense fixes
+    point_dim: int = 5
 
     @property
     def small_windows_budget(self) -> int:
@@ -142,17 +146,12 @@ class WindowMSALayer(nn.Module):
         return torch.where(mask[..., None], x, 0.0)
 
 
-# point features: x, y, z and two more (intensity and elongation on Waymo;
-# two uniform features in the synthetic frames)
-POINT_DIM = 5
-
-
 class SST(nn.Module):
     def __init__(self, cfg: SSTConfig):
         super().__init__()
         self.cfg = cfg
         dt = getattr(torch, cfg.compute_dtype)
-        self.vfe = DynamicVFE(POINT_DIM, feat_channels=cfg.vfe_channels,
+        self.vfe = DynamicVFE(cfg.point_dim, feat_channels=cfg.vfe_channels,
                               voxel_size=cfg.voxel_size,
                               pc_range=cfg.pc_range, dtype=dt)
         self.input_proj = nn.Linear(cfg.vfe_channels[-1], cfg.d_model)

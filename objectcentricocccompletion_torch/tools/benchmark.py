@@ -16,6 +16,8 @@ but ``votenet``, which raises).
         [--train] [--frames 20] [--num-real 150000] [--dtype bfloat16]
     python -m objectcentricocccompletion_torch.tools.benchmark fsdpp \\
         [--train] [--frames 10] [--num-real 150000]
+    python -m objectcentricocccompletion_torch.tools.benchmark annotate \\
+        [--frames 3] [--profile 1]
 
 ``sst`` builds the full-width ``SSTDetector(SSTDetectorConfig())`` with
 weights drawn from a seeded ``torch.Generator`` (no checkpoint is needed). By
@@ -72,6 +74,17 @@ the memory points cropped by the seeds and the merged points kept. With
 ``make_seq_train_step`` over consecutive windows of ``synth_frame``s with
 their boxes, the memory carried from step to step.
 
+``annotate`` runs the W1 occupancy annotator (``tools_occ/annotate.py::
+OccAnnotator``) on ``tools_occ/scenes.py::make_realistic_scene``: one car
+tracklet of 100 frames, each with 160,000 background points and 150-400 on
+the car, and five LiDARs (TOP 64 x 2650, four at 200 x 600). After one
+untimed tracklet (which stages the range images into the device cache, as
+the first tracklet of a segment does) it times ``--frames`` more of the
+same segment and prints the ms per tracklet and its split: the host gather
+and voxelization, the visibility test as the host sees it and on the
+device (CUDA events), the npz write; the peak memory, the grid's unknown /
+occupied / free counts and the window-attention launches (none).
+
 ``--profile N`` also traces N more frames (steps; for ``ococcnet``
 batches, predict and decode) with ``torch.profiler``, prints the operators
 that take the most device time, and adds the device's busy time per frame
@@ -84,6 +97,7 @@ import argparse
 import dataclasses
 import json
 import statistics
+import tempfile
 import time
 
 import numpy as np
@@ -96,12 +110,15 @@ from ..evalx.detector_eval import make_predict_fn, make_sequential_predict_fn
 from ..models.centerpoint import DynamicCenterPoint
 from ..models.ococcnet import OcOccNetWithLoss, gt_occ_to_roi_frame
 from ..models.sst_detector import SSTDetector, SSTDetectorConfig
+from ..ops import window_attention as wa
 from ..parallel.train import create_train_state, make_train_step
 from ..training.detector_trainer import (FrameBatch, collate_frames,
                                          make_detector_train_step)
 from ..training.optim import make_optimizer
 from ..training.seq_trainer import (SeqWindow, make_seq_train_step,
                                     step_generator)
+from ..tools_occ import scenes
+from ..tools_occ.annotate import OccAnnotator
 from ..utils.device import card_info, resolve_device
 from .train import build_detector
 
@@ -619,13 +636,60 @@ def bench_ococcnet_train(steps: int = 10, dtype: str = "bfloat16",
     return res
 
 
+def bench_annotate(tracklets: int = 3, device="cuda", profile_n: int = 0
+                   ) -> dict:
+    """The annotator's ms per tracklet on the benchmark scene, split by
+    stage (see the module's docstring)."""
+    dev = resolve_device(device)
+    boxes, ts_list, get_points, get_raw_frame = \
+        scenes.make_realistic_scene()
+    with tempfile.TemporaryDirectory() as out:
+        ann = OccAnnotator(get_points, get_raw_frame, out, overwrite=True,
+                           device=dev)
+        t0 = time.perf_counter()
+        ann.annotate_trk("seg", "warmup", boxes, ts_list)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        for k in ann.timing:
+            ann.timing[k] = 0.0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        wa.LAUNCHES.clear()
+        wa.BWD_LAUNCHES.clear()
+        times = []
+        for i in range(tracklets):
+            t0 = time.perf_counter()
+            path = ann.annotate_trk("seg", f"trk{i}", boxes, ts_list)
+            times.append((time.perf_counter() - t0) * 1e3)
+        occ = np.load(path)["occ"]
+        launches = sum(wa.LAUNCHES.values()) + sum(wa.BWD_LAUNCHES.values())
+        res = {"family": "annotate", "frames_per_tracklet": len(ts_list),
+               "sensors": 5, "ms_per_tracklet": statistics.median(times),
+               "ms_per_tracklet_all": times, "first_tracklet_ms": first_ms,
+               **{f"{k[:-2]}_ms_per_tracklet": v * 1e3 / tracklets
+                  for k, v in ann.timing.items() if k.endswith("_s")},
+               "device_visibility_ms_per_tracklet": (
+                   ann.timing["device_ms"] / tracklets
+                   if dev.type == "cuda" else None),
+               "peak_gib": _peak_gib(dev), "grid": list(occ.shape),
+               "unknown_occupied_free": [int((occ == v).sum())
+                                         for v in (0, 1, 2)],
+               "window_attention_launches": launches, **_card(dev)}
+        if profile_n:
+            res.update(profile_calls(
+                lambda: ann.annotate_trk("seg", "prof", boxes, ts_list),
+                profile_n, dev, unit="tracklet"))
+    return res
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
     p.add_argument("family", choices=["sst", "ococcnet", "centerpoint",
-                                      "fsd", "fsd2", "fsdpp", "votenet"])
+                                      "fsd", "fsd2", "fsdpp", "annotate",
+                                      "votenet"])
     p.add_argument("--frames", type=int, default=20,
                    help="timed frames (with --train: timed steps; "
-                        "ococcnet: timed batches)")
+                        "ococcnet: timed batches; annotate: timed "
+                        "tracklets)")
     p.add_argument("--eval-layout", choices=LAYOUTS, default="packed",
                    help="ococcnet: point layout")
     p.add_argument("--train", action="store_true",
@@ -645,6 +709,10 @@ def main(argv=None) -> None:
     if args.family == "votenet":
         raise NotImplementedError(
             f"the {args.family!r} family is not ported yet")
+    if args.family == "annotate":
+        print(json.dumps(bench_annotate(args.frames, args.device,
+                                        args.profile)))
+        return
     if args.family == "fsdpp":
         bench = bench_fsdpp_train if args.train else bench_fsdpp
         print(json.dumps(bench(args.frames, args.dtype, args.device,

@@ -30,9 +30,12 @@ function, scores stage 1's boxes). The metrics are printed as JSON.
 Everything runs on ``--device`` (``cuda`` unless the caller asks for the
 CPU).
 
+``--num-sweeps N`` reads N earlier sweeps into each frame, with the
+time-lag column (the detector's ``point_dim`` 6), as training did.
+
 The flags of the JAX CLI are kept (``--device`` replaces ``--cpu``). Those
-of options not ported yet (the ``votenet`` family, other datasets,
-``--num-sweeps`` > 0) raise ``NotImplementedError``.
+of options not ported yet (the ``votenet`` family, other datasets) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -86,7 +89,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--tune-steps", type=int, default=0,
                    help="online test-time latent tuning iterations")
     p.add_argument("--num-sweeps", type=int, default=0,
-                   help="multi-sweep frames (not ported)")
+                   help="concatenate N earlier sweeps into each frame, as "
+                        "in training")
     p.add_argument("--tiny", action="store_true",
                    help="tiny config for smoke runs")
     p.add_argument("--eval-layout", choices=["dense", "packed"],
@@ -144,16 +148,16 @@ def _eval_detector(args) -> dict:
     if args.dataset != "waymo":
         raise NotImplementedError(
             f"the {args.dataset!r} dataset is not ported yet")
-    if args.num_sweeps > 0:
-        raise NotImplementedError("--num-sweeps is not ported yet")
     if not args.infos or not args.data_root:
         raise SystemExit(
             f"{args.model} evaluation needs --infos and --data-root")
     dev = resolve_device(args.device)
     frame_kw = dict(max_points=4096, max_gt=32) if args.tiny else {}
-    ds = FrameDataset(args.infos, args.data_root, **frame_kw)
+    ds = FrameDataset(args.infos, args.data_root,
+                      num_sweeps=args.num_sweeps, **frame_kw)
     print(f"dataset: {len(ds)} frames", flush=True)
-    model = build_detector(args.model, args.tiny, device=dev)
+    model = build_detector(args.model, args.tiny, device=dev,
+                           point_dim=ds.point_dim)
     _restore(model, args.ckpt_dir)
     model.eval()
     # every class of the frames' labels, so that no GT label falls outside

@@ -8,7 +8,8 @@
         [--device cuda] [--work-dir DIR]
     python -m objectcentricocccompletion_torch.tools.train sst \\
         --infos data/infos.pkl --data-root data --total-steps 1000 \\
-        [--dtype bfloat16] [--tiny] [--device cuda] [--work-dir DIR]
+        [--dtype bfloat16] [--augment] [--gt-sample N] [--num-sweeps N] \\
+        [--disable-aug-after STEP] [--tiny] [--device cuda] [--work-dir DIR]
     python -m objectcentricocccompletion_torch.tools.train centerpoint \\
         --infos data/infos.pkl --data-root data --total-steps 1000 \\
         [--tiny] [--device cuda] [--work-dir DIR]
@@ -42,15 +43,20 @@ of each segment with ``training/seq_trainer.py::train_fsdpp``, which, as
 the JAX CLI's call, logs every 50 steps whatever ``--log-interval`` says.
 ``--occ-pred-root`` merges the predicted occupancy points that
 ``Evaluator.run(save_occ_root=...)`` writes into every frame family's
-frames (W8). Weights are drawn from
+frames (W8). Every frame family takes the frame training pipeline of
+``FrameDataset``: ``--augment`` (flip, rotation, scale), ``--gt-sample N``
+(GT copy-paste of N objects per class from a ``GTDatabase`` of the
+training frames, cached at ``--gt-db-cache``), ``--num-sweeps N`` (N
+earlier sweeps and a time-lag column: the detector's ``point_dim`` becomes
+6) and ``--disable-aug-after STEP`` (augmentation and paste off from that
+step on). Weights are drawn from
 a ``torch.Generator`` seeded with ``--seed``; everything runs on
 ``--device`` (``cuda`` unless the caller asks for the CPU). ``--dtype``
 sets the compute dtype; parameters stay float32.
 
 The flags of the JAX CLI are kept. Those of options not ported yet (the
 ``votenet`` family, other datasets, ``--tp``, ``--fsdp``,
-``--sequence-parallel``, ``--loader-workers`` > 0, the multi-host launch,
-``--num-sweeps``, ``--augment``, ``--disable-aug-after``, ``--gt-sample``)
+``--sequence-parallel``, ``--loader-workers`` > 0, the multi-host launch)
 raise ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -64,6 +70,7 @@ import torch
 from ..configs.ococcnet_config import (OcOccNetConfig, ctrl_cyc_config,
                                        ctrl_ped_config, ctrl_veh_config,
                                        tiny_config)
+from ..data.dbsampler import DBSampler, GTDatabase
 from ..data.frame_dataset import FrameDataset
 from ..data.tracklet_dataset import TrackletDataset
 from ..models.centerpoint import (CenterPointConfig, DynamicCenterPoint,
@@ -110,14 +117,22 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--seq-window", type=int, default=2,
                    help="frames per window (fsdpp)")
     p.add_argument("--num-sweeps", type=int, default=0,
-                   help="multi-sweep frames (not ported)")
+                   help="concatenate N earlier sweeps into each frame (adds "
+                        "a time-lag point column)")
     p.add_argument("--augment", action="store_true",
-                   help="frame geometry augmentation (not ported)")
+                   help="frame geometry augmentation (flip, rotation, "
+                        "scale)")
     p.add_argument("--disable-aug-after", type=int, default=None,
-                   help="turn augmentation off from this step on (not "
-                        "ported)")
+                   help="turn augmentation and GT paste off from this step "
+                        "on")
     p.add_argument("--gt-sample", type=int, default=0,
-                   help="GT copy-paste augmentation (not ported)")
+                   help="GT copy-paste augmentation: target objects per "
+                        "class per frame (0 = off)")
+    p.add_argument("--gt-db-cache", default=None,
+                   help="pickle cache of the GT copy-paste database")
+    p.add_argument("--gt-db-min-points", type=int, default=8,
+                   help="least interior points of a GT crop in the "
+                        "database")
     p.add_argument("--ctrl-class", choices=["veh", "ped", "cyc"],
                    default="veh", help="CTRL class variant")
     p.add_argument("--fixed-ae", action="store_true",
@@ -214,6 +229,16 @@ def fsdpp_train_config(tiny: bool = False, dtype: str | None = None
     return dataclasses.replace(cfg, fsd=fsd_train_config(tiny, dtype))
 
 
+def with_point_dim(cfg, point_dim: int):
+    """``cfg`` with points ``point_dim`` wide (on the sub-config that holds
+    the VFE: ``sst`` of SST, ``fsd`` of the two-stage families)."""
+    for sub in ("sst", "fsd"):
+        if hasattr(cfg, sub):
+            return dataclasses.replace(cfg, **{sub: dataclasses.replace(
+                getattr(cfg, sub), point_dim=point_dim)})
+    return dataclasses.replace(cfg, point_dim=point_dim)
+
+
 # family -> (model class, config of (tiny, dtype))
 DETECTORS = {
     "sst": (SSTDetector, sst_train_config),
@@ -225,15 +250,33 @@ DETECTORS = {
 
 
 def build_detector(family: str, tiny: bool = False, dtype: str | None = None,
-                   device="cuda", generator: torch.Generator | None = None):
+                   device="cuda", generator: torch.Generator | None = None,
+                   point_dim: int = 5):
     """The detector of ``family`` (a key of ``DETECTORS``) that the CLIs
-    train and evaluate, on ``device``; weights from ``generator`` when one
-    is given. Its ``loss`` is the family's training loss."""
+    train and evaluate, for points ``point_dim`` wide (``FrameDataset.
+    point_dim``), on ``device``; weights from ``generator`` when one is
+    given. Its ``loss`` is the family's training loss."""
     if family not in DETECTORS:
         raise NotImplementedError(
             f"the {family!r} detector family is not ported yet")
     cls, config = DETECTORS[family]
-    return cls(config(tiny, dtype), device=device, generator=generator)
+    return cls(with_point_dim(config(tiny, dtype), point_dim), device=device,
+               generator=generator)
+
+
+def attach_gt_sampler(ds: FrameDataset, gt_sample: int,
+                      cache: str | None = None, min_points: int = 8,
+                      seed: int = 0) -> GTDatabase:
+    """GT copy-paste on ``ds``, as the JAX CLI sets it up: a database of
+    the crops of up to 2,000 of its frames (loaded from ``cache`` where it
+    exists, else built and saved there), ``gt_sample`` objects per class."""
+    db = GTDatabase.build_or_load(ds, cache_path=cache,
+                                  min_points=min_points, max_frames=2000)
+    ds.db_sampler = DBSampler(db, {lab: gt_sample for lab in db.entries},
+                              seed=seed)
+    print(f"gt database: {len(db)} crops, classes {sorted(db.entries)}",
+          flush=True)
+    return db
 
 
 def main(argv=None,
@@ -262,10 +305,6 @@ def main(argv=None,
     if args.dataset != "waymo":
         raise NotImplementedError(
             f"the {args.dataset!r} dataset is not ported yet")
-    if args.disable_aug_after is not None:
-        raise NotImplementedError("--disable-aug-after is not ported yet")
-    if args.gt_sample > 0:
-        raise NotImplementedError("--gt-sample is not ported yet")
     if not args.infos or not args.data_root:
         raise SystemExit(
             f"{args.model} training needs --infos and --data-root")
@@ -276,21 +315,27 @@ def main(argv=None,
                       augment=args.augment, num_sweeps=args.num_sweeps,
                       **frame_kw)
     print(f"dataset: {len(ds)} frames", flush=True)
+    if args.gt_sample > 0:
+        attach_gt_sampler(ds, args.gt_sample, args.gt_db_cache,
+                          args.gt_db_min_points, args.seed)
     model = build_detector(args.model, args.tiny, args.dtype, dev,
-                           torch.Generator().manual_seed(args.seed))
+                           torch.Generator().manual_seed(args.seed),
+                           point_dim=ds.point_dim)
     if args.model == "fsdpp":
         return train_fsdpp(model, ds, args.work_dir,
                            total_steps=args.total_steps or 1000,
                            window=args.seq_window,
                            ckpt_interval=args.ckpt_interval, seed=args.seed,
                            resume=not args.no_resume, device=dev,
-                           hooks=hooks)
+                           hooks=hooks,
+                           disable_aug_after=args.disable_aug_after)
     return train_detector(model, ds, args.work_dir,
                           total_steps=args.total_steps or 1000,
                           ckpt_interval=args.ckpt_interval,
                           log_interval=args.log_interval, seed=args.seed,
                           device=dev, resume=not args.no_resume,
-                          hooks=hooks)
+                          hooks=hooks,
+                          disable_aug_after=args.disable_aug_after)
 
 
 if __name__ == "__main__":

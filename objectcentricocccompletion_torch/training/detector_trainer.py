@@ -1,5 +1,5 @@
 """Training loop of the single-frame detectors (counterpart of the JAX
-package's ``training/detector_trainer.py``; the SST family so far).
+package's ``training/detector_trainer.py``).
 
 A detector is a single-sample module (one padded frame per call). Where the
 JAX step vmaps the loss over a frame batch, the port loops over the batch's
@@ -108,8 +108,8 @@ def train_detector(model: torch.nn.Module, dataset, work_dir: str,
                    base_lr: float = 1e-5, ckpt_interval: int = 1000,
                    log_interval: int = 50, seed: int = 0, device="cuda",
                    resume: bool = True,
-                   hooks: Sequence[Callable[[int, dict], None]] = ()
-                   ) -> int:
+                   hooks: Sequence[Callable[[int, dict], None]] = (),
+                   disable_aug_after: int | None = None) -> int:
     """Train ``model`` (its weights as given) on ``dataset`` for
     ``total_steps`` steps on ``device`` (``cuda`` unless the caller asks
     for the CPU). Metrics go to ``work_dir/metrics.jsonl`` every
@@ -117,7 +117,10 @@ def train_detector(model: torch.nn.Module, dataset, work_dir: str,
     ``work_dir/ckpt`` every ``ckpt_interval`` steps and at the end; with
     ``resume`` the newest checkpoint there is loaded first. Each hook is
     called as ``hook(step, metrics)`` after every step (``step`` counts the
-    steps done). Returns the number of steps done."""
+    steps done). ``disable_aug_after`` turns the dataset's geometry
+    augmentation and GT paste off from that step on, before its batch is
+    drawn (the reference's ``DisableAugmentationHook``,
+    ``core/hook/fsd_hooks.py:7-54``). Returns the number of steps done."""
     dev = resolve_device(device)
     model.to(dev)
     loader = FrameLoader(dataset, batch_size, seed=seed)
@@ -134,6 +137,10 @@ def train_detector(model: torch.nn.Module, dataset, work_dir: str,
     t_last = time.time()
     with MetricLogger(work_dir, log_interval) as logger:
         for step in range(start, total_steps):
+            if disable_aug_after is not None and step >= disable_aug_after:
+                dataset.augment = False
+                dataset.db_sampler = None
+                disable_aug_after = None
             metrics = step_fn(step, next(loader) if step > start else batch)
             for hook in hooks:
                 hook(step + 1, metrics)

@@ -214,7 +214,8 @@ def train_fsdpp(model: FSDPP, dataset, work_dir: str, total_steps: int,
                 ckpt_interval: int = 1000, log_interval: int = 50,
                 seed: int = 0, resume: bool = True, sequential: bool = True,
                 device="cuda",
-                hooks: Sequence[Callable[[int, dict], None]] = ()) -> int:
+                hooks: Sequence[Callable[[int, dict], None]] = (),
+                disable_aug_after: int | None = None) -> int:
     """Train FSD++ (its weights as given) one window per step on
     ``device`` (``cuda`` unless the caller asks for the CPU). With
     ``sequential`` the windows walk each log front to back and the memory
@@ -224,7 +225,10 @@ def train_fsdpp(model: FSDPP, dataset, work_dir: str, total_steps: int,
     ``windows_per_sec``, a checkpoint to ``work_dir/ckpt`` every
     ``ckpt_interval`` steps and at the end; with ``resume`` the newest
     checkpoint there is loaded first. Each hook is called as ``hook(step,
-    metrics)`` after every step. Returns the number of steps done."""
+    metrics)`` after every step. ``disable_aug_after`` turns the dataset's
+    augmentation and GT paste off from that step on, before its window is
+    drawn, as ``train_detector`` does (the JAX function has no such
+    option). Returns the number of steps done."""
     dev = resolve_device(device)
     model.to(dev)
     loader = SequenceLoader(dataset, window=window, seed=seed,
@@ -245,6 +249,10 @@ def train_fsdpp(model: FSDPP, dataset, work_dir: str, total_steps: int,
     mem = mem0
     with MetricLogger(work_dir, log_interval) as logger:
         for step in range(start, total_steps):
+            if disable_aug_after is not None and step >= disable_aug_after:
+                dataset.augment = False
+                dataset.db_sampler = None
+                disable_aug_after = None
             if step > start:
                 batch, carry = next(loader), loader.carry
             else:

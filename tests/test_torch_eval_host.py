@@ -294,8 +294,8 @@ def test_cli_refuses_what_is_not_ported(tracklets, tmp_path):
              "--infos", "x.pkl", "--data-root", "."]
     with pytest.raises(NotImplementedError, match="nuscenes"):
         tcli.main([*frame, "--dataset", "nuscenes"])
-    with pytest.raises(NotImplementedError, match="--num-sweeps"):
-        tcli.main([*frame, "--num-sweeps", "2"])
+    with pytest.raises(NotImplementedError, match="argo2"):
+        tcli.main([*frame, "--dataset", "argo2"])
     with pytest.raises(SystemExit, match="no checkpoint"):
         tcli.main(["ococcnet", *flags, "--tiny", "--device", "cpu",
                    "--ckpt-dir", str(tmp_path / "empty")])

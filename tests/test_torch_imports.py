@@ -32,7 +32,13 @@ def test_port_sources_exist():
             "second.py", "centerpoint_head.py", "centerpoint.py",
             "cluster.py", "fsd.py", "fsd_two_stage.py", "incremental.py",
             "seeds.py", "fsdpp.py", "seed_store.py", "routes.py",
-            "seq_trainer.py"} <= names
+            "seq_trainer.py", "annotate.py", "range_image.py",
+            "waymo_raw_converter.py", "scenes.py", "generate_tracklets.py",
+            "extend_tracks.py", "create_data.py", "dbsampler.py",
+            "hooks.py"} <= names
+    for sub in ("tools_occ", "tools_ctrl"):
+        assert (ROOT / "objectcentricocccompletion_torch" / sub /
+                "__init__.py").exists()
     assert (ROOT / "objectcentricocccompletion_torch" / "parallel" /
             "train.py").exists()
     csrc = ROOT / "objectcentricocccompletion_torch" / "csrc"

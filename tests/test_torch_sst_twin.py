@@ -13,8 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from objectcentricocccompletion_tpu.data import dbsampler as jdb
 from objectcentricocccompletion_tpu.data import frame_dataset as jfd
 from objectcentricocccompletion_tpu.models import sst_detector as jdet
+from objectcentricocccompletion_torch.data import dbsampler as tdb
 from objectcentricocccompletion_torch.data import frame_dataset as tfd
 from objectcentricocccompletion_torch.tools import train as ttrain
 from tests.test_torch_window_attention import one_torch_thread  # noqa: F401
@@ -56,11 +58,28 @@ def test_synthetic_frames_and_samples_equal_the_jax_package(
 
 
 @pytest.mark.parametrize("option", [
-    dict(augment=True), dict(db_sampler=object()), dict(num_sweeps=2)])
+    dict(augment=True), dict(db_sampler=True), dict(num_sweeps=2)])
 def test_options_not_ported_raise(frames, option):
+    """The options that ``FrameDataset`` refused until the frame training
+    pipeline was ported (the augmentation, the GT paste with a sampler of
+    the frames' own database, multi-sweep loading) now build the JAX
+    package's samples, array for array from the same ``RandomState``."""
     info, root = frames
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
-        tfd.FrameDataset(info, root, **option)
+    kw = dict(max_points=2048, max_gt=12, **option)
+    datasets = []
+    for fd, db in ((jfd, jdb), (tfd, tdb)):
+        ds = fd.FrameDataset(info, root, **{**kw, "db_sampler": None})
+        if option.get("db_sampler"):
+            ds.db_sampler = db.DBSampler(db.GTDatabase.build_from_frames(
+                ds, min_points=4), {0: 8, 1: 8, 2: 8}, seed=1)
+        datasets.append(ds)
+    jr, tr = np.random.RandomState(2), np.random.RandomState(2)
+    for i in range(FRAMES["num_frames"]):
+        a, b = (ds.build_sample(i, r) for ds, r in zip(datasets, (jr, tr)))
+        for k in a:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert b["points"].shape[1] == 5 + bool(option.get("num_sweeps"))
 
 
 def write_occ_predictions(info, occ_root, frames=2, files=2, rows=300,
@@ -151,10 +170,10 @@ def test_cli_trains_logs_checkpoints_and_resumes(frames, tmp_path):
     assert ckpt["step"] == 2 and "model" in ckpt and "optimizer" in ckpt
 
 
-@pytest.mark.parametrize("extra", [["votenet"], ["sst", "--augment"],
+@pytest.mark.parametrize("extra", [["votenet"], ["sst", "--tp", "2"],
                                    ["sst", "--dataset", "nuscenes"],
-                                   ["sst", "--gt-sample", "2"],
-                                   ["sst", "--num-sweeps", "1"]])
+                                   ["sst", "--dataset", "argo2"],
+                                   ["sst", "--loader-workers", "2"]])
 def test_cli_refuses_what_is_not_ported(frames, extra):
     info, root = frames
     argv = extra + ["--infos", info, "--data-root", root, "--device", "cpu"]
