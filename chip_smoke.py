@@ -3,8 +3,9 @@
 its OcOccNet serving, training and evaluation paths, and the inference,
 training and evaluation paths of CenterPoint, of the FSD family and of
 FSD++, FSDv2 training on predicted occupancy (W8), the W1 occupancy
-annotator, the data-prep CLI and augmented multi-sweep training, on one
-CUDA card.
+annotator, the data-prep CLI and augmented multi-sweep training, CTRL with
+its tracklet segmentor, SIR remat, the tracklet loader's worker processes,
+VoteNet on indoor scenes and SST on nuScenes frames, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -216,11 +217,51 @@ Phases, each of which fails the run (non-zero exit) on any error:
     12 backward launches per level per step, finite losses, augmentation
     and GT paste off from step 2 (counted from 0); prints each step's ms
     and the host ms per frame of augmentation and paste.
-31. Print the kernels' JSON line (the bf16 and the float32 tensor-core
+31. A, CTRL with the full segmentor (``ctrl_veh_config()`` with
+    ``use_segmentor="full"``: 0.25 m voxels over +-100 m x +-10 m, 16,384
+    voxels, VFE (64, 64), UNet (64, 64, 128)) on ``synthetic_batch(
+    batch_size=4)`` (32 frames x 1,024 point slots per tracklet), packed:
+    serving in float32 and bf16 (ms per batch, peak memory, the
+    segmentor's voxels per tracklet against its budget); one tracklet's
+    predict and float32 training step (TF32 off, dropout 0) card against
+    CPU, the card's routes fed to the CPU, at phase 13's and phase 15's
+    bars; then 3 steps of ``training/trainer.py::train`` on phase 8's
+    tracklets (ms/step, peak memory); 0 window-attention launches.
+32. B, the dense-layout float32 OcOccNet step (``roi_point_budget`` 640,
+    TF32 off, dropout 0) with and without ``remat_sir``: every gradient
+    within 1e-4; ms per step and the peak memory of each.
+33. C, ``PrefetchLoader`` with 4 spawned workers: its first 2 batches equal
+    a serial rebuild of its (index, seed) schedule; then ``python -m
+    ...tools.train ococcnet`` at full width in bf16 with ``--loader-workers
+    4`` and with the thread prefetcher, 6 steps each (ms/step from the
+    third), beside the benchmark's step; each run a process of its own,
+    killed with its workers if it has not ended within 300 s.
+34. D, VoteNet at the full width of ``VoteNetConfig()`` (18 ScanNet
+    classes, 40,000 points, SA 2048/1024/512/256, 1,024 seeds, 256
+    proposals): ms per frame and per step, the peak memory, the kernels
+    per frame and the furthest point samplings' host steps, kernels and
+    ms (``benchmark votenet``); predict on a ScanNet and a SUN RGB-D scene
+    (10 classes, yaw) card against CPU (float32, TF32 off) with the card's
+    picks (samples, neighbours, ball memberships, through
+    ``ops/routes.py::Routes``) fed to the CPU, the CPU's own differing in
+    at most ``FSDPP_ROUTE_FLIPS`` of the fed elements, at phase 13's bar; ``tools/train.py
+    votenet`` for 3 steps and ``tools/test.py votenet`` on written
+    ScanNet and SUN RGB-D scenes of 50,000 points; 0 window-attention
+    launches.
+35. E, nuScenes frames (``write_nuscenes_frames``: 3 key frames of 30,000
+    points with a sweep, inside SST's range): ``tools/train.py sst
+    --dataset nuscenes`` for 2 float32 steps (12 forward and 12 backward
+    launches per level per step) and ``tools/test.py sst --dataset
+    nuscenes`` (12 forward per level per frame); one Lyft sample of the
+    same files with its sweep.
+36. Print the kernels' JSON line (the bf16 and the float32 tensor-core
     kernels, each level apart; launches of the bf16 frames and bf16
-    training, and of the float32 frame, float32 and augmented training and
-    the SST evaluation), then as the last line ``{"ok": true, "device":
-    {...}}``.
+    training, and of the float32 frame, float32, augmented and nuScenes
+    training and the SST evaluations), then as the last line ``{"ok":
+    true, "device": {...}}``.
+
+The Argoverse 2 reader needs pandas and pyarrow, which the card's machine
+lacks: the CPU tests hold it, this script does not drive it.
 
 It exits non-zero, printing no result, where ``torch.cuda.is_available()``
 is false or the port's package is missing.
@@ -241,11 +282,17 @@ import time
 import numpy as np
 import torch
 
+from objectcentricocccompletion_torch.configs.ococcnet_config import (
+    OcOccNetConfig, ctrl_veh_config)
 from objectcentricocccompletion_torch.data import frame_dataset as tfd
+from objectcentricocccompletion_torch.data.indoor_dataset import (
+    write_indoor_scenes)
 from objectcentricocccompletion_torch.data.frame_dataset import (
     FrameDataset, write_synthetic_frames)
 from objectcentricocccompletion_torch.data.loader import (
-    write_synthetic_dataset)
+    PrefetchLoader, write_synthetic_dataset)
+from objectcentricocccompletion_torch.data.nuscenes_dataset import (
+    LyftDataset, write_nuscenes_frames)
 from objectcentricocccompletion_torch.data.synthetic import synthetic_batch
 from objectcentricocccompletion_torch.data.tracklet import TrackletBatch
 from objectcentricocccompletion_torch.data.tracklet_dataset import (
@@ -280,7 +327,7 @@ from objectcentricocccompletion_torch.training.optim import make_optimizer
 from objectcentricocccompletion_torch.training.seq_trainer import (
     SeqWindow, make_seq_train_step)
 from objectcentricocccompletion_torch.training.trainer import (
-    CheckpointManager)
+    CheckpointManager, train as train_tracklets)
 from objectcentricocccompletion_torch.tools_occ import annotate, scenes
 from objectcentricocccompletion_torch.utils.device import card_info
 
@@ -499,6 +546,28 @@ ANNOTATE_DATA = dict(segments=2, frames_per_segment=10,
 CREATE_DATA_TIMEOUT = 300
 # augmented multi-sweep SST training through the CLI
 AUG_TRAIN_STEPS = 4
+# A: CTRL with its full tracklet segmentor; timed serving batches, training
+# steps through training/trainer.py::train
+SEG_TIMED = 5
+SEG_TRAIN_STEPS = 3
+NO_DROPOUT = dict(occ_dropout=0.0, attn_dropout=0.0, cls_dropout=0.0,
+                  reg_dropout=0.0, latent_dropout=0.0, fusion_dropout=0.0)
+# B: the dense float32 step with and without remat_sir (timed steps)
+REMAT_STEPS = 3
+# C: the CLI with the worker pool against the thread prefetcher; the pool's
+# first batches against a serial rebuild of its schedule
+LOADER_WORKERS = 4
+LOADER_STEPS = 6
+LOADER_CHECK_BATCHES = 2
+LOADER_WAIT = 300.0
+# D: VoteNet at full width: timed frames / steps, written scenes, CLI steps
+VOTE_TIMED = 5
+VOTE_SCENES = 2
+VOTE_TRAIN_STEPS = 3
+# E: nuScenes frames for SST (inside its range), float32 CLI steps
+NUS_FRAMES = 3
+NUS_POINTS = 30000
+NUS_TRAIN_STEPS = 2
 AUG_ARGS = ("--augment", "--gt-sample", "2", "--num-sweeps", "2",
             "--disable-aug-after", "2")
 
@@ -1627,12 +1696,15 @@ def phase_centerpoint(dev):
         f"window-attention launches 0; card {card_info()}")
 
 
-def compare_cp_maps(what, got, ref, rtol):
-    for key in CP_HEADS:
-        if not torch.isfinite(got[key]).all():
+def compare_outputs(what, got, ref, keys, rtol=CP_CPU_RTOL):
+    """Each output of ``keys`` finite and within ``rtol`` of the larger of 1
+    and its magnitude."""
+    for key in keys:
+        g, r = got[key].detach().float().cpu(), ref[key].detach().float()
+        if not torch.isfinite(g).all():
             raise AssertionError(f"{what}: {key} not finite")
-        mag = ref[key].abs().max().item()
-        err = (got[key].cpu() - ref[key]).abs().max().item()
+        mag = r.abs().max().item()
+        err = (g - r).abs().max().item()
         tol = rtol * max(1.0, mag)
         log(f"{what}: {key} max abs err {err:.3e} (tolerance {tol:.3e}; "
             f"magnitude {mag:.3f})")
@@ -1653,13 +1725,12 @@ def phase_cp_card_vs_cpu(dev):
     with torch.inference_mode():
         ref = cpu(pts.cpu(), msk.cpu())
         a = card(pts, msk)
-        compare_cp_maps("centerpoint fp32, card vs CPU", a, ref,
-                        CP_CPU_RTOL)
+        compare_outputs("centerpoint fp32, card vs CPU", a, ref, CP_HEADS)
         torch.backends.cudnn.allow_tf32 = True
         b = card(pts, msk)
-        compare_cp_maps("centerpoint fp32 under the CLI's TF32 settings "
+        compare_outputs("centerpoint fp32 under the CLI's TF32 settings "
                         "(cuDNN TF32 on, matmul TF32 off), card vs CPU", b,
-                        ref, CP_TF32_CPU_RTOL)
+                        ref, CP_HEADS, CP_TF32_CPU_RTOL)
     torch.backends.cudnn.allow_tf32 = False
     no_kernel_launches("centerpoint card vs CPU")
 
@@ -2892,6 +2963,422 @@ def phase_aug_training(dev, frames_dir, work):
     return fwd, bwd
 
 
+def seg_config(**kw):
+    """CTRL vehicle with the full segmentor (``TrackletSegmentorConfig()``:
+    0.25 m voxels over +-100 m x +-10 m, 16,384 voxels)."""
+    return dataclasses.replace(ctrl_veh_config(), use_segmentor="full", **kw)
+
+
+def phase_ctrl_segmentor(dev, occ_dir):
+    """A. CTRL vehicle with the full segmentor: serving in float32 and bf16
+    (packed layout, batch 4 of 32 frames x 1,024 point slots: 32,768 points
+    through the segmentor per tracklet), the segmentor's voxels per
+    tracklet against its budget; one tracklet's predict and float32
+    training step (TF32 off, dropout 0) card against CPU, the card's routes
+    fed to the CPU; then ``SEG_TRAIN_STEPS`` steps of
+    ``training/trainer.py::train`` on phase 8's tracklets. No hand-written
+    kernel lies on the path."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    for dtype in ("float32", "bfloat16"):
+        res = bench.bench_ococcnet(SEG_TIMED, dtype, "packed", dev,
+                                   cfg=seg_config())
+        log(f"ctrl + segmentor serving ({dtype}, packed, batch "
+            f"{res['batch']}): {res['latency_ms']:.3f} ms per batch "
+            f"(median of {SEG_TIMED}), {res['fps']:.2f} tracklets/s, peak "
+            f"memory {res['peak_memory_gib']:.3f} GiB; segmentor voxels per "
+            f"tracklet {res['segmentor_voxels']} of "
+            f"{res['segmentor_max_voxels']}; card {res['card']}")
+    cfg = seg_config(base_lr=CP_STEP_LR, **NO_DROPOUT)
+    batch = TrackletBatch(*(x[:1] for x in synthetic_batch(
+        cfg, batch_size=bench.OCC_BATCH, seed=0)))
+    card = OcOccNetWithLoss(cfg, dev, torch.Generator().manual_seed(0))
+    cpu = OcOccNetWithLoss(cfg, "cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    with torch.no_grad():
+        got = card.predict(batch.to(dev))
+        ref = cpu.predict(batch)
+    compare_outputs("ctrl + segmentor predict fp32, card vs CPU", got, ref,
+                    ("cls_logit", "bbox_pred", "boxes", "scores"))
+    res = []
+    for where in (dev, torch.device("cpu")):
+        model, optimizer, schedule = create_train_state(cfg, 100, where, 0)
+        init = {n: p.detach().cpu().clone()
+                for n, p in model.named_parameters()}
+        step_fn = make_train_step(model, optimizer, schedule)
+        if where == dev:
+            with Routes() as routes:
+                metrics = step_fn(0, batch)
+        else:
+            with Routes([m.cpu() for m in routes.masks]) as fed:
+                metrics = step_fn(0, batch)
+        res.append(({k: float(v) for k, v in metrics.items()},
+                    {n: (p.detach().cpu(), p.grad.cpu())
+                     for n, p in model.named_parameters()}))
+    seg = [n for n in res[1][1] if ".segmentor." in n]
+    log(f"ctrl + segmentor fp32 step: the card's {len(routes.masks)} routes' "
+        f"{fed.fed} elements fed to the CPU, {fed.flips} differ from its "
+        f"own (bar {FSDPP_ROUTE_FLIPS:.0e} of those fed; {fed.flipped}); "
+        f"{len(seg)} of {len(res[1][1])} parameter tensors in the segmentor")
+    if not fed.flips <= FSDPP_ROUTE_FLIPS * fed.fed:
+        raise AssertionError(f"ctrl + segmentor step: {fed.flips} of "
+                             f"{fed.fed} route elements differ")
+    check_step_card_vs_cpu("ctrl + segmentor fp32 step", res, init,
+                           schedule(0))
+    del card, model, optimizer
+    torch.cuda.empty_cache()
+
+    cfg = seg_config()
+    ds = TrackletDataset(**dataset_paths(os.path.join(occ_dir, "data")),
+                         cfg=cfg, class_names=cfg.class_names)
+    stamps = []
+
+    def hook(step, metrics):
+        torch.cuda.synchronize()
+        stamps.append((time.perf_counter(), float(metrics["loss"])))
+
+    with tempfile.TemporaryDirectory() as work:
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        done = train_tracklets(cfg, ds, work, total_steps=SEG_TRAIN_STEPS,
+                               log_interval=1, device=dev, hooks=[hook])
+        if done != SEG_TRAIN_STEPS or not os.path.exists(
+                os.path.join(work, "ckpt", f"step_{SEG_TRAIN_STEPS}.pt")):
+            raise AssertionError(f"ctrl + segmentor training ran {done}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    losses = [x for _, x in stamps]
+    if not all(abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"ctrl + segmentor training losses {losses}")
+    times = [(b - a) * 1e3 for a, b in zip([t0] + [t for t, _ in stamps],
+                                          [t for t, _ in stamps])]
+    no_kernel_launches("ctrl + segmentor")
+    log(f"ctrl + segmentor training (training/trainer.py::train, float32, "
+        f"batch {cfg.batch_size}, config dropout): ms/step "
+        f"{[round(x, 3) for x in times]} (the first builds the model), "
+        f"losses {[round(x, 4) for x in losses]}, peak memory {peak:.3f} "
+        f"GiB; window-attention launches 0; card {card_info()}")
+
+
+def phase_remat(dev):
+    """B. The dense-layout float32 OcOccNet step (TF32 off, dropout 0,
+    ``roi_point_budget`` 640) with and without ``remat_sir`` on the
+    benchmark's batch: every gradient within ``OCC_STEP_GRAD_ATOL``; ms
+    per forward + backward and the peak memory of each."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(OcOccNetConfig(), packed_point_budget=None,
+                              **NO_DROPOUT)
+    batch = synthetic_batch(cfg, batch_size=bench.OCC_BATCH, seed=0).to(dev)
+    grads, rows = {}, {}
+    for remat in (False, True):
+        model = OcOccNetWithLoss(dataclasses.replace(cfg, remat_sir=remat),
+                                 dev, torch.Generator().manual_seed(0))
+        model.train()
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            total, _ = model(batch)
+            total.backward()
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times = bench.time_calls(step, REMAT_STEPS, dev, warmup=0)
+        rows[remat] = (statistics.median(times),
+                       torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+        grads[remat] = {n: p.grad.detach().clone()
+                        for n, p in model.named_parameters()}
+        del model
+        torch.cuda.empty_cache()
+    err = max((float((g - grads[False][n]).abs().max()), n)
+              for n, g in grads[True].items())
+    (ms0, gib0), (ms1, gib1) = rows[False], rows[True]
+    log(f"remat_sir (dense float32 step, batch {bench.OCC_BATCH}): without "
+        f"{ms0:.3f} ms, peak {gib0:.3f} GiB; with {ms1:.3f} ms, peak "
+        f"{gib1:.3f} GiB ({100 * (gib0 - gib1) / gib0:.1f}% lower peak, "
+        f"{100 * (ms1 - ms0) / ms0:.1f}% more time; medians of "
+        f"{REMAT_STEPS} steps); gradients: worst {err[1]} at {err[0]:.3e} "
+        f"(tolerance {OCC_STEP_GRAD_ATOL}); card {card_info()}")
+    if not err[0] <= OCC_STEP_GRAD_ATOL:
+        raise AssertionError(f"remat gradients: {err}")
+
+
+def run_bounded(argv, what, timeout=LOADER_WAIT):
+    """``argv`` in a subprocess that leads its own process group, from the
+    repository's root, its output printed; the whole group (with the
+    worker pool it started) is killed at ``timeout`` seconds, which fails
+    the phase."""
+    proc = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, _ = proc.communicate()
+        raise AssertionError(f"{what}: no end within {timeout} s; its "
+                             f"output ends {out[-3000:]}")
+    log(out.rstrip())
+    if proc.returncode:
+        raise AssertionError(f"{what}: exit {proc.returncode}")
+    return out
+
+
+def check_worker_batches(data_root, batch_size):
+    """``PrefetchLoader`` with ``LOADER_WORKERS`` spawned processes: its
+    first ``LOADER_CHECK_BATCHES`` batches against a serial rebuild of its
+    (index, seed) schedule (run by ``phase_loader_workers`` in a process
+    of its own)."""
+    cfg = train_cli.ococc_train_config(dtype="bfloat16")
+    ds = TrackletDataset(**dataset_paths(data_root), cfg=cfg,
+                         class_names=cfg.class_names)
+    rng, order, tasks = np.random.RandomState(0), [], []
+    for _ in range(LOADER_CHECK_BATCHES * batch_size):
+        if not order:
+            order = list(rng.permutation(len(ds)))
+        tasks.append((order.pop(), int(rng.randint(0, 2 ** 31 - 1))))
+    t0 = time.perf_counter()
+    loader = PrefetchLoader(ds, batch_size, seed=0, workers=LOADER_WORKERS,
+                            prefetch=2, timeout=LOADER_WAIT / 2)
+    try:
+        batches = [next(loader) for _ in range(LOADER_CHECK_BATCHES)]
+    finally:
+        loader.close()
+    first_s = time.perf_counter() - t0
+    for i, batch in enumerate(batches):
+        ref = [ds.build_sample(idx, np.random.RandomState(seed))
+               for idx, seed in tasks[i * batch_size:(i + 1) * batch_size]]
+        for name, got in zip(batch._fields, batch):
+            if not np.array_equal(got.numpy(),
+                                  np.stack([r[name] for r in ref])):
+                raise AssertionError(f"worker batch {i} {name} differs "
+                                     f"from the serial rebuild")
+    log(f"loader workers: {LOADER_CHECK_BATCHES} batches of {batch_size} "
+        f"from {LOADER_WORKERS} spawned workers equal the serial rebuild of "
+        f"their (index, seed) schedule ({first_s:.1f} s with the pool's "
+        f"start)")
+
+
+def phase_loader_workers(dev, occ_dir):
+    """C. The worker pool, each run in a process of its own (as a user runs
+    the CLI; every run bounded by ``LOADER_WAIT`` seconds):
+    ``check_worker_batches``; then ``python -m ...tools.train ococcnet`` at
+    full width (bf16, batch 4) with ``--loader-workers`` and with the
+    thread prefetcher, ``LOADER_STEPS`` steps each (ms per step from the
+    logged tracklets/s), beside the benchmark's step on one fixed batch
+    in this process."""
+    data = os.path.join(occ_dir, "data")
+    paths = dataset_paths(data)
+    batch = train_cli.ococc_train_config().batch_size
+    torch.cuda.empty_cache()
+    run_bounded([sys.executable, "-c", "import chip_smoke; chip_smoke."
+                 f"check_worker_batches({data!r}, {batch})"],
+                "the worker batches' check")
+    rows = {}
+    with tempfile.TemporaryDirectory() as work:
+        for name, extra in (("thread prefetcher", []),
+                            (f"{LOADER_WORKERS} workers",
+                             ["--loader-workers", str(LOADER_WORKERS)])):
+            run_dir = os.path.join(work, name.replace(" ", "_"))
+            t0 = time.perf_counter()
+            run_bounded([sys.executable, "-m",
+                         "objectcentricocccompletion_torch.tools.train",
+                         "ococcnet", *tracklet_flags(paths), "--total-steps",
+                         str(LOADER_STEPS), "--log-interval", "1",
+                         "--work-dir", run_dir, "--device", "cuda",
+                         "--seed", "0", "--dtype", "bfloat16", *extra],
+                        f"ococcnet CLI with the {name}")
+            wall = time.perf_counter() - t0
+            logged = [json.loads(line) for line in open(
+                os.path.join(run_dir, "metrics.jsonl"))]
+            if [r["step"] for r in logged] != list(
+                    range(1, LOADER_STEPS + 1)) or not all(
+                    abs(r["loss"]) < float("inf") for r in logged):
+                raise AssertionError(f"{name}: metrics {logged}")
+            ms = [batch * 1e3 / r["tracklets_per_sec"] for r in logged]
+            rows[name] = statistics.median(ms[TRAIN_TIMED_FROM - 1:])
+            log(f"ococcnet CLI with the {name}: {rows[name]:.3f} ms/step "
+                f"(median of steps {TRAIN_TIMED_FROM}-{LOADER_STEPS}; all "
+                f"{[round(x, 3) for x in ms]}), {wall:.1f} s of wall with "
+                f"the process's start")
+    bench_step = bench.bench_ococcnet_train(LOADER_STEPS - 2, "bfloat16",
+                                            "packed", dev)["step_ms"]
+    log(f"loader workers: the CLI's ms/step {rows} (bf16, batch {batch}, "
+        f"full width, one call); the benchmark's step on one fixed batch "
+        f"{bench_step:.3f} ms; card {card_info()}")
+
+
+def phase_votenet(dev, keep):
+    """D. VoteNet at the full width of ``VoteNetConfig()``: ms per frame
+    and per step, the peak memory and the furthest point samplings' share
+    (``benchmark votenet``); predict on a ScanNet and a SUN RGB-D scene
+    (float32, TF32 off) card against CPU, the card's picks fed to the CPU
+    (at most ``FSDPP_ROUTE_FLIPS`` of them differing from the CPU's own);
+    ``tools/train.py votenet`` on written ScanNet and SUN RGB-D scenes and
+    ``tools/test.py votenet`` on each checkpoint. No hand-written kernel
+    lies on the path."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    for train in (False, True):
+        res = bench.bench_votenet(VOTE_TIMED, train, "scannet", dev,
+                                  profile_n=1)
+        unit = "step" if train else "frame"
+        log(f"votenet {res['mode']} (scannet, {res['num_classes']} classes, "
+            f"{res['points']} points): {res[f'ms_per_{unit}']:.3f} ms per "
+            f"{unit} (median of {VOTE_TIMED}), peak memory "
+            f"{res['peak_memory_gib']:.3f} GiB; kernels and copies per "
+            f"{unit} {res[f'device_calls_per_{unit}']:.0f}, device busy "
+            f"{res[f'device_busy_ms_per_{unit}']:.3f} ms "
+            f"(share {res['device_busy_share']:.3f}); furthest point "
+            f"sampling: stages {res['fps_stages']}, ms "
+            f"{[round(x, 3) for x in res['fps_ms_by_stage']]} "
+            f"({res['fps_ms_per_frame']:.3f} per forward), "
+            f"{res['fps_steps_per_frame']} host steps of "
+            f"{res['fps_kernels_per_step']} kernels: "
+            f"{res['fps_launches_per_frame']:.0f} launches per forward; "
+            f"card {res['card']}")
+    for dataset in ("scannet", "sunrgbd"):
+        card = bench.build_votenet(dataset, dev, 0)
+        cpu = bench.build_votenet(dataset, "cpu", 0)
+        cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+        batch = bench.indoor_batch(dataset, "cpu", seed=3)
+        points, mask = batch.points[0], batch.points_mask[0]
+        with torch.no_grad():
+            with Routes() as picks:
+                got = card(points.to(dev), mask.to(dev))
+            with Routes([p.cpu() for p in picks.masks]) as fed:
+                ref = cpu(points, mask)
+        log(f"votenet {dataset} predict fp32, card vs CPU: the card's "
+            f"{len(picks.masks)} picks ({fed.fed} elements) fed to the CPU; "
+            f"{fed.flips} differ from the CPU's own (bar "
+            f"{FSDPP_ROUTE_FLIPS:.0e} of those fed; (call, kind, shape, "
+            f"count): {fed.flipped})")
+        if not fed.flips <= FSDPP_ROUTE_FLIPS * fed.fed:
+            raise AssertionError(f"votenet {dataset} predict: {fed.flips} "
+                                 f"of {fed.fed} pick elements differ")
+        compare_outputs(f"votenet {dataset} predict fp32, card vs CPU", got,
+                        ref, ("vote_xyz", "obj", "boxes", "sem"))
+        del card, cpu
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = True
+    for dataset, yawed, ncls in (("scannet", False, 18),
+                                 ("sunrgbd", True, 10)):
+        root = os.path.join(keep, dataset)
+        info = write_indoor_scenes(root, VOTE_SCENES, bench.INDOOR_POINTS,
+                                   yawed, seed=int(yawed))
+        work = os.path.join(root, "work")
+        common = ["votenet", "--dataset", dataset, "--infos", info,
+                  "--data-root", root, "--device", "cuda"]
+        stamps = []
+
+        def hook(step, metrics):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        t0 = time.perf_counter()
+        done = train_cli.main(common + [
+            "--total-steps", str(VOTE_TRAIN_STEPS), "--log-interval", "1",
+            "--work-dir", work, "--seed", "0"], hooks=[hook])
+        rows = [json.loads(line)
+                for line in open(os.path.join(work, "metrics.jsonl"))]
+        if done != VOTE_TRAIN_STEPS or not all(
+                abs(r[k]) < float("inf") for r in rows
+                for k in ("loss", "loss_vote", "grad_norm")):
+            raise AssertionError(f"votenet {dataset} training: {rows}")
+        times = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+        t = time.perf_counter()
+        metrics = test_cli.main(common + ["--ckpt-dir",
+                                          os.path.join(work, "ckpt")])
+        eval_s = time.perf_counter() - t
+        if len(metrics) != 3 * ncls or not all(
+                0.0 <= v <= 100.0 for v in metrics.values()):
+            raise AssertionError(f"votenet {dataset} evaluation: {metrics}")
+        log(f"votenet {dataset} CLIs: {VOTE_TRAIN_STEPS} training steps, "
+            f"ms/step {[round(x, 3) for x in times]} (the first builds the "
+            f"model), losses {[round(r['loss'], 4) for r in rows]}; "
+            f"tools/test.py over {VOTE_SCENES} scenes in {eval_s:.2f} s, "
+            f"{len(metrics)} AP keys ({ncls} classes)")
+    no_kernel_launches("votenet")
+    log("votenet: window-attention launches 0")
+
+
+def phase_nuscenes(dev, keep):
+    """E. nuScenes frames (``write_nuscenes_frames``: key frame and a sweep
+    of ``NUS_POINTS`` points inside SST's range, ``infos.pkl``):
+    ``tools/train.py sst --dataset nuscenes`` for ``NUS_TRAIN_STEPS``
+    float32 steps (12 forward and 12 backward window-attention launches
+    per level per step) and ``tools/test.py sst --dataset nuscenes`` (12
+    forward per level per frame, no backward); one Lyft sample of the same
+    files with its sweep. Returns the launch counts (forward, backward)."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lo, hi = bench.sst_config().sst.pc_range[:3], \
+        bench.sst_config().sst.pc_range[3:]
+    root = os.path.join(keep, "nuscenes")
+    info = write_nuscenes_frames(
+        root, NUS_FRAMES, NUS_POINTS, num_sweeps=1,
+        pc_range=tuple(x + 1 for x in lo) + tuple(x - 1 for x in hi))
+    per_level = 2 * bench.sst_config().sst.num_blocks
+    expect = {32: per_level, 144: per_level}
+    work = os.path.join(root, "work")
+    common = ["sst", "--dataset", "nuscenes", "--infos", info, "--data-root",
+              root, "--device", "cuda"]
+    stamps = []
+
+    def hook(step, metrics):
+        torch.cuda.synchronize()
+        stamps.append((time.perf_counter(), dict(wa.LAUNCHES),
+                       dict(wa.BWD_LAUNCHES)))
+
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    done = train_cli.main(common + ["--total-steps", str(NUS_TRAIN_STEPS),
+                                    "--log-interval", "1", "--work-dir",
+                                    work, "--seed", "0"], hooks=[hook])
+    fwd, bwd = dict(wa.LAUNCHES), dict(wa.BWD_LAUNCHES)
+    times = step_launches("nuscenes sst training", t0, stamps, expect)
+    rows = [json.loads(line)
+            for line in open(os.path.join(work, "metrics.jsonl"))]
+    if done != NUS_TRAIN_STEPS or not all(
+            abs(r[k]) < float("inf") for r in rows
+            for k in ("loss", "loss_cls", "loss_bbox", "grad_norm")):
+        raise AssertionError(f"nuscenes sst training: {rows}")
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    t = time.perf_counter()
+    metrics = test_cli.main(common + ["--ckpt-dir",
+                                      os.path.join(work, "ckpt")])
+    eval_ms = (time.perf_counter() - t) * 1e3 / NUS_FRAMES
+    efwd, ebwd = dict(wa.LAUNCHES), dict(wa.BWD_LAUNCHES)
+    if efwd != {T: per_level * NUS_FRAMES for T in expect} or any(ebwd) \
+            or len(metrics) != 3 * 10:
+        raise AssertionError(f"nuscenes sst evaluation: launches {efwd} "
+                             f"{ebwd}, metrics {metrics}")
+    s = LyftDataset(info, root, max_sweeps=1).build_sample(
+        0, np.random.RandomState(0))
+    pts = s["points"][s["points_mask"]]
+    lags = sorted(set(np.round(pts[:, 4], 3)))
+    if pts.shape[1] != 5 or len(pts) != min(2 * NUS_POINTS, 40000) or \
+            lags != [0.0, 0.05]:
+        raise AssertionError(f"lyft sample: {pts.shape}, lags {lags}")
+    log(f"nuscenes sst (float32, {NUS_FRAMES} frames of {NUS_POINTS} "
+        f"points and a sweep): {NUS_TRAIN_STEPS} training steps, ms/step "
+        f"{[round(x, 3) for x in times]}, losses "
+        f"{[round(r['loss'], 4) for r in rows]}, launches forward {fwd} "
+        f"backward {bwd} ({per_level} per level per step each); "
+        f"tools/test.py {eval_ms:.3f} ms per frame under the CLI, "
+        f"launches {efwd} ({per_level} per level per frame), "
+        f"{len(metrics)} AP keys; one Lyft sample with its sweep: "
+        f"{len(pts)} points, time lags {lags}, "
+        f"{int(s['gt_valid'].sum())} boxes; card {card_info()}")
+    return ({T: fwd[T] + efwd[T] for T in expect}, bwd)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -3004,6 +3491,19 @@ def main():
         t = time.perf_counter()
         aug_fwd, aug_bwd = phase_aug_training(dev, cp_frames, fsd_work)
         log(f"phase augmented training: {time.perf_counter() - t:.1f} s")
+        for name, run in (
+                ("A ctrl + segmentor",
+                 lambda: phase_ctrl_segmentor(dev, occ_dir)),
+                ("B remat", lambda: phase_remat(dev)),
+                ("C loader workers",
+                 lambda: phase_loader_workers(dev, occ_dir)),
+                ("D votenet", lambda: phase_votenet(dev, keep))):
+            t = time.perf_counter()
+            run()
+            log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        nus_fwd, nus_bwd = phase_nuscenes(dev, keep)
+        log(f"phase E nuscenes: {time.perf_counter() - t:.1f} s")
 
     # launches on the model's paths: bf16 inference and training run the
     # bf16 kernels, the float32 frame, float32 and augmented training and
@@ -3021,8 +3521,9 @@ def main():
             (torch.float32, "fp32", "window_attention.cu",
              "window_attention_bwd.cu",
              {T: fp32_fwd[T] + fp32_train_fwd[T] + eval_fwd[T] + aug_fwd[T]
-              for _, T in ATTN_SHAPES},
-             {T: fp32_train_bwd[T] + aug_bwd[T] for _, T in ATTN_SHAPES})):
+              + nus_fwd[T] for _, T in ATTN_SHAPES},
+             {T: fp32_train_bwd[T] + aug_bwd[T] + nus_bwd[T]
+              for _, T in ATTN_SHAPES})):
         for W, T in ATTN_SHAPES:
             kernels.append(dict(
                 name=f"window_attention_{tag}_T{T}", route="cuda",

@@ -27,7 +27,7 @@ class OcOccNetConfig:
     # statistics whatever this says
     ln_dtype: str = "auto"
 
-    # rematerialise the SIR encoders in training (not ported: raises)
+    # rematerialise the SIR encoders in training (the dense layout only)
     remat_sir: bool = False
 
     # static shapes
@@ -103,7 +103,8 @@ class OcOccNetConfig:
 
     class_names: Tuple[str, ...] = ("Car",)
 
-    # whole-tracklet sparse-UNet point features (not ported: raises)
+    # whole-tracklet sparse-UNet point features: None, "tiny" or "full"
+    # (models/tracklet_segmentor.py)
     use_segmentor: str | None = None
 
     # optimisation

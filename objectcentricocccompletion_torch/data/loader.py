@@ -1,12 +1,11 @@
 """Tracklet batching and a reference-format synthetic dataset writer
 (counterpart of the JAX package's ``data/loader.py``: ``collate``,
-``TrainLoader``, ``make_loader``, ``ThreadPrefetcher`` and
-``write_synthetic_dataset``, which writes the same files).
+``TrainLoader``, ``PrefetchLoader``, ``make_loader``, ``ThreadPrefetcher``
+and ``write_synthetic_dataset``, which writes the same files).
 
 ``collate`` stacks numpy samples into a ``TrackletBatch`` of CPU tensors;
-the training loop moves it to the device. Worker processes
-(``PrefetchLoader``) are not ported yet: the CLI refuses
-``--loader-workers`` above 0.
+the training loop moves it to the device. ``PrefetchLoader`` builds the
+samples in worker processes (numpy only; they touch no CUDA).
 """
 from __future__ import annotations
 
@@ -14,6 +13,7 @@ import os
 import pickle
 import queue
 import threading
+import time
 
 import numpy as np
 import torch
@@ -58,11 +58,171 @@ class TrainLoader:
         return collate(samples)
 
 
-def make_loader(dataset: TrackletDataset, batch_size: int, seed: int = 0
-                ) -> TrainLoader:
-    """The serial ``TrainLoader`` (the JAX package's ``make_loader`` with no
-    worker processes)."""
-    return TrainLoader(dataset, batch_size, seed=seed)
+def _worker_loop(ctor_kwargs: dict, augment: bool, tasks, results,
+                 stop) -> None:
+    """A spawned worker: builds its own dataset from the constructor's
+    arguments (nothing large crosses the process boundary), then answers
+    each ``(key, index, seed)`` task of its ``tasks`` pipe with ``(key,
+    sample)`` (``(key, error)`` where the build raises) on its ``results``
+    pipe until it reads ``None`` or the loader closes the pipes; once
+    ``stop`` is set it skips the tasks left."""
+    ds = TrackletDataset(**ctor_kwargs)
+    ds.augment = augment
+    try:
+        while (task := tasks.recv()) is not None:
+            if stop.is_set():
+                continue
+            key, idx, seed = task
+            try:
+                sample = ds.build_sample(idx, np.random.RandomState(seed))
+            except Exception as e:       # raised again in the loader
+                sample = RuntimeError(f"sample {idx}: {e!r}")
+            results.send((key, sample))
+    except (EOFError, BrokenPipeError):  # the loader has closed
+        pass
+
+
+class PrefetchLoader:
+    """Endless batches built by ``workers`` spawned processes, ``prefetch``
+    batches in flight. The epoch permutation comes from
+    ``numpy.random.RandomState(seed)`` as in ``TrainLoader``; each sample
+    then draws its own seed (``randint(0, 2**31 - 1)``) from the same state
+    in schedule order and is built from a fresh ``RandomState`` of it, so
+    the batches are the same for any worker count (the JAX package's
+    ``PrefetchLoader``, draw for draw).
+
+    Each worker is a plain process with a task pipe and a result pipe of
+    its own, whose other ends only the loader holds: no pool, no helper
+    thread, no lock shared between processes. Every wait is bounded: a
+    worker that ends (even in the middle of a sample) closes its pipe and
+    fails the loader at once, a batch that has not come within ``timeout``
+    seconds fails it too, and ``close`` kills the workers still running
+    ``CLOSE_WAIT`` seconds after it asked them to end."""
+
+    CLOSE_WAIT = 5.0
+
+    def __init__(self, dataset: TrackletDataset, batch_size: int,
+                 seed: int = 0, workers: int = 8, prefetch: int = 4,
+                 timeout: float = 120.0):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.ds = dataset
+        self.batch_size = batch_size
+        self.rng = np.random.RandomState(seed)
+        self.timeout = timeout
+        self._order: list = []
+        self._pending: list[list[int]] = []
+        self._done: dict = {}
+        self._key = 0
+        self._stop = ctx.Event()
+        self._workers: list = []     # (process, task pipe, result pipe)
+        try:
+            for _ in range(workers):
+                task_r, task_w = ctx.Pipe(duplex=False)
+                res_r, res_w = ctx.Pipe(duplex=False)
+                proc = ctx.Process(target=_worker_loop, daemon=True, args=(
+                    dataset._ctor_kwargs, dataset.augment, task_r, res_w,
+                    self._stop))
+                proc.start()
+                task_r.close()
+                res_w.close()
+                self._workers.append((proc, task_w, res_r))
+            for _ in range(max(prefetch, 1)):
+                self._submit_batch()
+        except BaseException:
+            self.close()
+            raise
+
+    def schedule(self) -> list[tuple[int, int]]:
+        """The next batch's (index, seed) tasks, drawn from the loader's
+        state."""
+        tasks = []
+        for _ in range(self.batch_size):
+            if not self._order:
+                self._order = list(self.rng.permutation(len(self.ds)))
+            tasks.append((self._order.pop(),
+                          int(self.rng.randint(0, 2 ** 31 - 1))))
+        return tasks
+
+    @staticmethod
+    def _ended(proc) -> RuntimeError:
+        proc.join(1.0)
+        return RuntimeError(f"loader worker {proc.pid} ended (exit code "
+                            f"{proc.exitcode})")
+
+    def _submit_batch(self) -> None:
+        keys = []
+        for idx, seed in self.schedule():
+            proc, tasks, _ = self._workers[self._key % len(self._workers)]
+            try:
+                tasks.send((self._key, idx, seed))
+            except BrokenPipeError:
+                raise self._ended(proc) from None
+            keys.append(self._key)
+            self._key += 1
+        self._pending.append(keys)
+
+    def _collect(self, key: int) -> dict:
+        from multiprocessing.connection import wait
+        procs = {res: proc for proc, _, res in self._workers}
+        deadline = time.monotonic() + self.timeout
+        while key not in self._done:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"no sample within {self.timeout} s")
+            for res in wait(list(procs), timeout=min(left, 1.0)):
+                try:
+                    got, sample = res.recv()
+                except EOFError:
+                    raise self._ended(procs[res]) from None
+                if isinstance(sample, Exception):
+                    raise sample
+                self._done[got] = sample
+        return self._done.pop(key)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> TrackletBatch:
+        self._submit_batch()
+        return collate([self._collect(k) for k in self._pending.pop(0)])
+
+    def close(self) -> None:
+        """End the workers: they skip the tasks left and read ``None``;
+        those still running ``CLOSE_WAIT`` seconds later are killed."""
+        workers, self._workers = self._workers, []
+        self._stop.set()
+        for _, tasks, _ in workers:
+            try:
+                tasks.send(None)
+            except OSError:              # the worker has ended
+                pass
+        deadline = time.monotonic() + self.CLOSE_WAIT
+        for proc, _, res in workers:
+            while proc.is_alive() and time.monotonic() < deadline:
+                try:
+                    if res.poll(0.05):   # unblock the worker's last send
+                        res.recv()
+                except EOFError:
+                    proc.join(max(deadline - time.monotonic(), 0.0))
+        for proc, tasks, res in workers:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+            tasks.close()
+            res.close()
+
+
+def make_loader(dataset: TrackletDataset, batch_size: int, seed: int = 0,
+                workers: int = 0, prefetch: int = 4,
+                timeout: float = 120.0):
+    """``workers`` 0: the serial ``TrainLoader``; above 0: a
+    ``PrefetchLoader`` of that many processes, each of its waits bounded
+    by ``timeout`` seconds."""
+    if workers <= 0:
+        return TrainLoader(dataset, batch_size, seed=seed)
+    return PrefetchLoader(dataset, batch_size, seed=seed, workers=workers,
+                          prefetch=prefetch, timeout=timeout)
 
 
 def write_synthetic_dataset(root: str, num_tracklets: int = 4,

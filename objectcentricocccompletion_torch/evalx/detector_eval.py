@@ -1,6 +1,6 @@
 """Detector evaluation (counterpart of the JAX package's
-``evalx/detector_eval.py``; the SST, CenterPoint, FSD, two-stage FSD and
-FSD++ families):
+``evalx/detector_eval.py``; the SST, CenterPoint, FSD, two-stage FSD,
+FSD++ and VoteNet families):
 prediction over the val frames on the model's device, score filtering and
 per-class rotated NMS, then KITTI-protocol AP or the Waymo ``.bin`` files
 and the native mAP / mAPH. FSD++ walks each segment's frames in time order
@@ -53,8 +53,10 @@ def make_predict_fn(model, family: str):
     model's device. The model holds its own weights (the JAX version takes
     them as an argument). ``fsd``: one box per cluster slot, scored by its
     best task and decoded with that task's regression; ``fsd2``: the
-    refined boxes, scored by stage 2, labelled by stage 1's best task."""
-    if family in ("sst", "centerpoint"):
+    refined boxes, scored by stage 2, labelled by stage 1's best task;
+    ``votenet``: the proposals' boxes, sigmoid(objectness) x proposal
+    mask, the best class and the proposal mask."""
+    if family in ("sst", "centerpoint", "votenet"):
         def fn(points, mask):
             return model.predict(points, mask)
     elif family == "fsd":
@@ -70,9 +72,6 @@ def make_predict_fn(model, family: str):
             out = model(points, mask)
             return (out["refined_boxes"], torch.sigmoid(out["cls2"]),
                     out["cls"].argmax(-1), out["roi_nonempty"])
-    elif family == "votenet":
-        raise NotImplementedError(
-            "the 'votenet' detector family is not ported yet")
     else:
         raise ValueError(f"unknown detector family: {family!r}")
     return torch.inference_mode()(fn)
@@ -218,7 +217,9 @@ def _gt_and_meta(dataset, idx, s):
     """Per-frame GT (with the annos' difficulty realigned to the kept
     boxes) and frame metadata."""
     gv = s["gt_valid"]
-    info = dataset.infos[idx]
+    # the Argoverse 2 reader lists files, not infos; nuScenes infos carry
+    # no ``point_cloud`` (the JAX function raises on both)
+    info = dataset.infos[idx] if hasattr(dataset, "infos") else {}
     annos = info.get("annos", {})
     if "name" in annos:
         diff = difficulty_from_annos(annos)
@@ -233,8 +234,8 @@ def _gt_and_meta(dataset, idx, s):
               difficulty=diff)
     meta = dict(
         segment=info.get("segment_name",
-                         info["point_cloud"].get("segment_name",
-                                                 f"seg-{idx}")),
+                         info.get("point_cloud", {}).get("segment_name",
+                                                         f"seg-{idx}")),
         timestamp=int(info.get("timestamp", idx)),
         points=np.asarray(s["points"])[np.asarray(s["points_mask"])],
         index=idx)

@@ -22,7 +22,13 @@ and the heads only.
 A training forward (``train=True``) runs the full causal window and, where
 the config's dropout rates are nonzero, the counter-hash dropout of
 ``models/layers.py`` with the keys the caller passes (``DropoutKeys``).
-``use_segmentor`` and ``remat_sir`` raise ``NotImplementedError``.
+``use_segmentor`` (``"tiny"`` or ``"full"``) runs CTRL's
+``TrackletSegmentor`` over each tracklet's points of every frame and appends
+its per-point features to the RoI encoder's input. ``remat_sir`` recomputes
+both SIR encoders in the backward instead of keeping their activations
+(``torch.utils.checkpoint``), on the dense layout only, with no dropout in
+them (the JAX package's ``nn.remat`` drops the train flag); the packed
+layout ignores it, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.ococcnet_config import OcOccNetConfig
 from ..core import boxes as box_ops
@@ -39,10 +46,11 @@ from ..data.tracklet import TrackletBatch
 from ..ops import packed as pk
 from ..ops import roi_pool as rp
 from ..utils.device import resolve_device
-from .layers import (DropoutKeys, Mlp, init_flax_like_,
+from .layers import (DropoutKeys, Mlp, he_normal_, init_flax_like_,
                      sinusoidal_position_encoding)
 from .occ_decoder import OccDecoder
 from .sir import SIREncoder
+from .tracklet_segmentor import TrackletSegmentor, segmentor_config
 from .transformer import TemporalEncoder
 
 # per-point geometry of the RoI encoder's f_cluster: local xyz (3), face
@@ -81,14 +89,6 @@ class OcOccNet(nn.Module):
 
     def __init__(self, cfg: OcOccNetConfig):
         super().__init__()
-        if cfg.use_segmentor:
-            raise NotImplementedError(
-                "use_segmentor (TrackletSegmentor point features) is not "
-                "ported yet")
-        if cfg.remat_sir:
-            raise NotImplementedError(
-                "remat_sir (rematerialised SIR encoders in training) is not "
-                "ported yet")
         self.cfg = cfg
         dt = getattr(torch, cfg.compute_dtype)
         self.dtype = dt
@@ -97,8 +97,13 @@ class OcOccNet(nn.Module):
                              persistent=False)
         self.with_occ = cfg.variant == "ococc"
         roi_dim = cfg.num_blocks * sum(cfg.feat_channels)
+        seg_dim = 0
+        if cfg.use_segmentor:
+            self.segmentor = TrackletSegmentor(
+                segmentor_config(cfg.use_segmentor), cfg.points_dim)
+            seg_dim = self.segmentor.out_channels
         self.roi_encoder = SIREncoder(
-            cfg.num_point_feats + 1, GEO_DIM, cfg.num_blocks,
+            cfg.num_point_feats + seg_dim + 1, GEO_DIM, cfg.num_blocks,
             cfg.feat_channels, cfg.rel_mlp_hidden, cfg.xyz_normalizer,
             geo_input=True, act=cfg.act, dtype=dt)
         if not self.with_occ:
@@ -158,6 +163,8 @@ class OcOccNet(nn.Module):
         G = B * L
         pts_xyz = batch.points[..., :3]
         pts_feats = batch.points[..., 3:]
+        if cfg.use_segmentor:
+            pts_feats = torch.cat([pts_feats, self.segment(batch)], -1)
         layout = self.point_layout(batch)
         pool, order = layout.pool, layout.order
         if layout.packed is not None:
@@ -187,9 +194,9 @@ class OcOccNet(nn.Module):
         f_cluster = torch.cat([pool.local_xyz, pool.boundary_offset,
                                pool.is_in_margin[..., None], pool.rel_xyz],
                               -1)
-        _, roi_feats = self.roi_encoder(flat(pts_xyz), flat(enc_feats),
-                                        flat(pool.mask), flat(f_cluster),
-                                        keys=keys)
+        _, roi_feats = self._dense_encoder(
+            self.roi_encoder, keys, flat(pts_xyz), flat(enc_feats),
+            flat(pool.mask), flat(f_cluster))
         roi_feats = torch.where(nonempty[..., None],
                                 roi_feats.reshape(B, L, -1), 0.0)
         if not self.with_occ:
@@ -200,11 +207,32 @@ class OcOccNet(nn.Module):
                                            cfg.ae_voxel_size)
         ae_in = torch.cat([pts_feats[..., :2], pool.boundary_offset,
                            pool.is_in_margin[..., None], vox], -1)
-        _, ae_feats = self.ae_encoder(flat(pool.local_xyz), flat(ae_in),
-                                      flat(pool.mask), keys=keys)
+        _, ae_feats = self._dense_encoder(
+            self.ae_encoder, keys, flat(pool.local_xyz), flat(ae_in),
+            flat(pool.mask))
         ae_feats = torch.where(nonempty[..., None],
                                ae_feats.reshape(B, L, -1), 0.0)
         return self._heads(batch, roi_feats, ae_feats, nonempty, train, keys)
+
+    def segment(self, batch: TrackletBatch) -> torch.Tensor:
+        """The segmentor's features of every point, [B, L, P, C]: each
+        tracklet's L * P points in one call (a loop over B)."""
+        B, L, P, _ = batch.points.shape
+        finds = batch.frame_inds[:, :, None].expand(B, L, P).reshape(B, -1)
+        points = batch.points.reshape(B, L * P, -1)
+        mask = batch.points_mask.reshape(B, L * P)
+        return torch.stack([self.segmentor(points[b], finds[b], mask[b])
+                            for b in range(B)], 0).reshape(B, L, P, -1)
+
+    def _dense_encoder(self, encoder: SIREncoder, keys, *args):
+        """A SIR encoder on the dense layout; under ``remat_sir`` without
+        dropout keys, and recomputed in the backward where a gradient is
+        taken."""
+        if not self.cfg.remat_sir:
+            return encoder(*args, keys=keys)
+        if torch.is_grad_enabled():
+            return checkpoint(encoder, *args, use_reentrant=False)
+        return encoder(*args)
 
     def point_layout(self, batch: TrackletBatch) -> PointLayout:
         """Pool each frame's points into its RoI and lay them out. Packed:
@@ -333,6 +361,9 @@ class OcOccNetWithLoss(nn.Module):
             cfg.rcnn_code_weights, dtype=torch.float32), persistent=False)
         if generator is not None:
             init_flax_like_(self, generator)
+            for p in self.parameters():
+                if p.dim() == 3:          # the segmentor's sparse kernels
+                    he_normal_(p, generator)
         self.to(dev)
 
     def forward(self, batch: TrackletBatch, train: bool = True,

@@ -9,7 +9,9 @@ backward against another's records the first run's routes and feeds them
 to the second, as it feeds the grouping: ``with Routes() as routes:``
 records them (``routes.masks``, on the run's device), ``with
 Routes(masks):`` feeds them. Only inputs that take a gradient are routed;
-with no ``Routes`` active each op is its plain self."""
+with no ``Routes`` active each op is its plain self. The picks of
+``ops/pointnet.py`` (sample and neighbour indices, ball memberships) go
+through the active ``Routes`` too, with or without a gradient."""
 from __future__ import annotations
 
 from typing import Callable, Sequence
@@ -42,8 +44,8 @@ class Routes:
                                f"{self.used} used")
 
     def take(self, kind: str, own: torch.Tensor) -> torch.Tensor:
-        """This call's route: ``own`` (a boolean mask) where recording,
-        else the fed mask."""
+        """This call's route: ``own`` (a boolean mask, or a pick's
+        indices) where recording, else the fed one."""
         if not self.feeding:
             self.masks.append(own)
             return own

@@ -1,6 +1,5 @@
 """Latency benchmark of the port (counterpart of the JAX repository's
-``tools/benchmark.py`` and ``benchmarks/bench_detectors.py``; every family
-but ``votenet``, which raises).
+``tools/benchmark.py`` and ``benchmarks/bench_detectors.py``).
 
     python -m objectcentricocccompletion_torch.tools.benchmark sst \\
         --frames 20 --dtype bfloat16
@@ -18,6 +17,11 @@ but ``votenet``, which raises).
         [--train] [--frames 10] [--num-real 150000]
     python -m objectcentricocccompletion_torch.tools.benchmark annotate \\
         [--frames 3] [--profile 1]
+    python -m objectcentricocccompletion_torch.tools.benchmark \\
+        ococcnet|ctrl [--train] [--segmentor full] [--eval-layout dense] \\
+        [--remat] [--dtype float32]
+    python -m objectcentricocccompletion_torch.tools.benchmark votenet \\
+        [--train] [--frames 10] [--dataset scannet|sunrgbd] [--profile 1]
 
 ``sst`` builds the full-width ``SSTDetector(SSTDetectorConfig())`` with
 weights drawn from a seeded ``torch.Generator`` (no checkpoint is needed). By
@@ -85,6 +89,21 @@ and voxelization, the visibility test as the host sees it and on the
 device (CUDA events), the npz write; the peak memory, the grid's unknown /
 occupied / free counts and the window-attention launches (none).
 
+``ctrl`` runs the same at the full width of ``ctrl_veh_config()`` (the RoI
+encoder and heads only). ``--segmentor tiny|full`` turns on CTRL's
+``TrackletSegmentor`` (``use_segmentor``) and adds its occupied voxels per
+tracklet against its ``max_voxels``; ``--remat`` (with ``--eval-layout
+dense``) recomputes the SIR encoders in the backward (``remat_sir``).
+
+``votenet`` builds the full-width ``VoteNetConfig()`` of the training CLI
+(ScanNet's 18 classes, or with ``--dataset sunrgbd`` SUN RGB-D's 10 with
+yaw; seeded random weights) and times ``predict`` per frame, or with
+``--train`` training steps, on a scene of 50,000 points written by
+``data/indoor_dataset.py::write_indoor_scenes`` and read back by the
+dataset's reader (40,000 kept); beside it the furthest point samplings
+alone (each stage's input and sample counts, its ms, the host loop's steps
+and, on the card, the kernels each step launches).
+
 ``--profile N`` also traces N more frames (steps; for ``ococcnet``
 batches, predict and decode) with ``torch.profiler``, prints the operators
 that take the most device time, and adds the device's busy time per frame
@@ -103,13 +122,16 @@ import time
 import numpy as np
 import torch
 
-from ..configs.ococcnet_config import OcOccNetConfig
+from ..configs.ococcnet_config import OcOccNetConfig, ctrl_veh_config
+from ..data.indoor_dataset import (ScanNetDataset, SUNRGBDDataset,
+                                   write_indoor_scenes)
 from ..data.synthetic import synth_frame, synthetic_batch
 from ..data.tracklet import TrackletBatch
 from ..evalx.detector_eval import make_predict_fn, make_sequential_predict_fn
 from ..models.centerpoint import DynamicCenterPoint
 from ..models.ococcnet import OcOccNetWithLoss, gt_occ_to_roi_frame
 from ..models.sst_detector import SSTDetector, SSTDetectorConfig
+from ..ops import pointnet as pn
 from ..ops import window_attention as wa
 from ..parallel.train import create_train_state, make_train_step
 from ..training.detector_trainer import (FrameBatch, collate_frames,
@@ -560,41 +582,77 @@ def layout_points(model: OcOccNetWithLoss, b: TrackletBatch) -> dict:
             "points_kept": int(kept.sum()), "point_slots": kept.numel()}
 
 
+def occ_bench_config(family: str = "ococcnet", segmentor: str | None = None,
+                     remat: bool = False) -> OcOccNetConfig:
+    """The full-width ``OcOccNetConfig()`` (``ctrl``: ``ctrl_veh_config()``)
+    with CTRL's segmentor (``tiny`` / ``full``) and SIR remat as asked."""
+    cfg = ctrl_veh_config() if family == "ctrl" else OcOccNetConfig()
+    return dataclasses.replace(cfg, use_segmentor=segmentor,
+                               remat_sir=remat)
+
+
+def occ_options(model: OcOccNetWithLoss, b: TrackletBatch) -> dict:
+    """The variant and options of the config; with the segmentor, each
+    tracklet's occupied voxels before its ``max_voxels`` cut."""
+    cfg = model.cfg
+    res = {"variant": cfg.variant, "use_segmentor": cfg.use_segmentor,
+           "remat_sir": cfg.remat_sir}
+    if cfg.use_segmentor:
+        seg = model.net.segmentor
+        B = b.points.shape[0]
+        points, mask = b.points.reshape(B, -1, b.points.shape[-1]), \
+            b.points_mask.reshape(B, -1)
+        res["segmentor_voxels"] = [seg.voxel_count(points[i, :, :3], mask[i])
+                                   for i in range(B)]
+        res["segmentor_max_voxels"] = seg.cfg.max_voxels
+    return res
+
+
 def bench_ococcnet(batches: int = 20, dtype: str = "bfloat16",
                    layout: str = "packed", device="cuda", seed: int = 0,
                    profile_n: int = 0, cfg: OcOccNetConfig | None = None,
                    batch: int = OCC_BATCH) -> dict:
     """OcOccNet serving at full width: ``predict`` per batch of ``batch``
-    tracklets, then the occupancy decode of its queries, each timed apart
-    (median over ``batches`` after warm-up)."""
+    tracklets, then the occupancy decode of its queries (not for CTRL,
+    which has no decoder), each timed apart (median over ``batches`` after
+    warm-up)."""
     dev = resolve_device(device)
     cfg = ococcnet_config(dtype, layout, cfg)
     model = build_ococcnet(cfg, dev, seed)
     b, queries = tracklet_batch(cfg, dev, batch, seed)
+    with_occ = cfg.variant == "ococc"
+
+    @torch.inference_mode()
+    def serve():
+        o = model.predict(b)
+        if with_occ:
+            model.decode_occ_queries(o["shape_latent"], queries)
+
     with torch.inference_mode():
         out = model.predict(b)
-        occ = model.decode_occ_queries(out["shape_latent"], queries)
+        shapes = {k: list(v.shape) for k, v in out.items()}
+        if with_occ:
+            occ = model.decode_occ_queries(out["shape_latent"], queries)
+            shapes["occ_logits"] = list(occ.shape)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         times = time_calls(lambda: model.predict(b), batches, dev)
-        dec = time_calls(
-            lambda: model.decode_occ_queries(out["shape_latent"], queries),
-            batches, dev)
+        dec = None
+        if with_occ:
+            dec = time_calls(
+                lambda: model.decode_occ_queries(out["shape_latent"],
+                                                 queries), batches, dev)
     med = statistics.median(times)
-    shapes = {k: list(v.shape) for k, v in out.items()}
-    shapes["occ_logits"] = list(occ.shape)
-    res = {"family": "ococcnet", "dtype": dtype, "eval_layout": layout,
+    res = {"family": "ococcnet", **occ_options(model, b), "dtype": dtype,
+           "eval_layout": layout,
            "batch": batch, "batches": batches, "latency_ms": med,
            "mean_ms": statistics.fmean(times), "fps": batch * 1e3 / med,
-           "unit": "tracklets/sec", "decode_ms": statistics.median(dec),
+           "unit": "tracklets/sec",
+           "decode_ms": statistics.median(dec) if with_occ else None,
            "decode_queries": queries.shape[2], **layout_points(model, b),
            "peak_memory_gib": _peak_gib(dev),
            "shapes": shapes, **_card(dev)}
     if profile_n:
-        @torch.inference_mode()
-        def serve():
-            o = model.predict(b)
-            model.decode_occ_queries(o["shape_latent"], queries)
         res.update(profile_calls(serve, profile_n, dev, unit="batch"))
     return res
 
@@ -623,8 +681,9 @@ def bench_ococcnet_train(steps: int = 10, dtype: str = "bfloat16",
                        warmup=0)
     metrics = {k: float(v) for k, v in step_fn(next(count), b).items()}
     med = statistics.median(times)
-    res = {"family": "ococcnet", "mode": "train", "dtype": dtype,
-           "eval_layout": layout, "batch": batch, "steps": steps,
+    res = {"family": "ococcnet", **occ_options(model, b), "mode": "train",
+           "dtype": dtype, "eval_layout": layout, "batch": batch,
+           "steps": steps,
            "step_ms": med, "mean_ms": statistics.fmean(times),
            "fps": batch * 1e3 / med, "unit": "tracklets/sec",
            "metrics": metrics, **layout_points(model, b),
@@ -681,17 +740,138 @@ def bench_annotate(tracklets: int = 3, device="cuda", profile_n: int = 0
     return res
 
 
+INDOOR_POINTS = 50000     # points per written scene (40,000 kept)
+
+
+def build_votenet(dataset: str = "scannet", device="cuda", seed: int = 0):
+    """The training CLI's full-width VoteNet for ``dataset`` (``scannet``
+    or ``sunrgbd``) with seeded random weights."""
+    reader = SUNRGBDDataset if dataset == "sunrgbd" else ScanNetDataset
+    return build_detector(
+        "votenet", device=device, generator=torch.Generator().manual_seed(
+            seed), point_dim=6, num_classes=len(reader.CLASSES),
+        with_yaw=dataset == "sunrgbd").eval()
+
+
+def indoor_batch(dataset: str = "scannet", device="cuda", seed: int = 0
+                 ) -> FrameBatch:
+    """One scene of ``write_indoor_scenes`` through the dataset's reader,
+    as a one-frame batch on ``device``."""
+    yawed = dataset == "sunrgbd"
+    with tempfile.TemporaryDirectory() as root:
+        info = write_indoor_scenes(root, 1, INDOOR_POINTS, yawed, seed=seed)
+        reader = SUNRGBDDataset if yawed else ScanNetDataset
+        s = reader(info, root).build_sample(0, np.random.RandomState(seed))
+    s.pop("meta")
+    return collate_frames([s]).to(resolve_device(device))
+
+
+def fps_stages(cfg) -> list[tuple[int, int]]:
+    """(input points, samples) of each furthest point sampling of a VoteNet
+    forward: the set abstractions, then the proposals among the seeds."""
+    sizes = [cfg.max_points] + [sa[0] for sa in cfg.sa_layers]
+    stages = list(zip(sizes[:-1], sizes[1:]))
+    return stages + [(sizes[-1 - len(cfg.fp_channels)], cfg.num_proposals)]
+
+
+def fps_costs(cfg, device: torch.device, reps: int = 3) -> dict:
+    """The furthest point samplings of one forward alone: each stage's ms
+    (median of ``reps``, uniform points), the host loop's steps and, on the
+    card, the kernels one step launches (the difference of two traced
+    calls' kernel counts over their difference in steps)."""
+    gen = torch.Generator().manual_seed(0)
+    ms = []
+    for n, k in fps_stages(cfg):
+        pts = (8 * torch.rand(n, 3, generator=gen)).to(device)
+        mask = torch.ones(n, dtype=torch.bool, device=device)
+        ms.append(statistics.median(time_calls(
+            lambda: pn.furthest_point_sample(pts, mask, k), reps, device,
+            warmup=1)))
+    steps = sum(k - 1 for _, k in fps_stages(cfg))
+    res = {"fps_stages": fps_stages(cfg), "fps_ms_by_stage": ms,
+           "fps_ms_per_frame": sum(ms), "fps_steps_per_frame": steps,
+           "fps_kernels_per_step": None, "fps_launches_per_frame": None}
+    if device.type == "cuda":
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        counts = []
+        for k in (65, 129):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                pn.furthest_point_sample(pts, mask, k)
+                _sync(device)
+            counts.append(sum(e.count for e in prof.key_averages()
+                              if e.device_type == DeviceType.CUDA))
+        per_step = (counts[1] - counts[0]) / 64
+        res.update(fps_kernels_per_step=per_step,
+                   fps_launches_per_frame=per_step * steps)
+    return res
+
+
+def bench_votenet(frames: int = 10, train: bool = False,
+                  dataset: str = "scannet", device="cuda", seed: int = 0,
+                  profile_n: int = 0, warmup: int = 2) -> dict:
+    """Full-width VoteNet ``predict`` per frame, or training steps
+    (forward, loss, backward, clip, AdamW at ``train_detector``'s
+    defaults), on one written scene: the median over ``frames`` after
+    ``warmup``, the peak memory and the furthest point samplings' costs."""
+    dev = resolve_device(device)
+    model = build_votenet(dataset, dev, seed)
+    batch = indoor_batch(dataset, dev, seed)
+    points, mask = batch.points[0], batch.points_mask[0]
+    if train:
+        model.train()
+        optimizer, schedule = make_optimizer(
+            model.named_parameters(), base_lr=1e-5,
+            total_steps=warmup + frames + profile_n)
+        step_fn = make_detector_train_step(model, optimizer, schedule)
+        count = iter(range(warmup + frames + profile_n))
+
+        def call():
+            step_fn(next(count), batch)
+    else:
+        predict = make_predict_fn(model, "votenet")
+
+        def call():
+            predict(points, mask)
+    for _ in range(warmup):
+        call()
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    times = time_calls(call, frames, dev, warmup=0)
+    med = statistics.median(times)
+    unit = "step" if train else "frame"
+    res = {"family": "votenet", "dataset": dataset,
+           "mode": "train" if train else "predict",
+           "num_classes": model.cfg.num_classes,
+           "with_yaw": model.cfg.with_yaw, "frames": frames,
+           "points": int(mask.sum()), f"ms_per_{unit}": med,
+           "mean_ms": statistics.fmean(times),
+           "peak_memory_gib": _peak_gib(dev),
+           **fps_costs(model.cfg, dev), **_card(dev)}
+    if profile_n:
+        res.update(profile_calls(call, profile_n, dev, unit=unit))
+    return res
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser()
-    p.add_argument("family", choices=["sst", "ococcnet", "centerpoint",
-                                      "fsd", "fsd2", "fsdpp", "annotate",
-                                      "votenet"])
+    p.add_argument("family", choices=["sst", "ococcnet", "ctrl",
+                                      "centerpoint", "fsd", "fsd2", "fsdpp",
+                                      "annotate", "votenet"])
     p.add_argument("--frames", type=int, default=20,
                    help="timed frames (with --train: timed steps; "
                         "ococcnet: timed batches; annotate: timed "
                         "tracklets)")
     p.add_argument("--eval-layout", choices=LAYOUTS, default="packed",
-                   help="ococcnet: point layout")
+                   help="ococcnet / ctrl: point layout")
+    p.add_argument("--segmentor", choices=["tiny", "full"], default=None,
+                   help="ococcnet / ctrl: CTRL's tracklet segmentor")
+    p.add_argument("--remat", action="store_true",
+                   help="ococcnet / ctrl with --eval-layout dense: "
+                        "recompute the SIR encoders in the backward")
+    p.add_argument("--dataset", choices=["scannet", "sunrgbd"],
+                   default="scannet", help="votenet: the scene's form")
     p.add_argument("--train", action="store_true",
                    help="time training steps instead of predict")
     p.add_argument("--dtype", default=None,
@@ -706,9 +886,14 @@ def main(argv=None) -> None:
                    help="also trace N frames (or steps) with "
                         "torch.profiler")
     args = p.parse_args(argv)
+    if args.remat and args.eval_layout != "dense":
+        raise SystemExit("--remat applies to --eval-layout dense (the "
+                         "packed layout ignores remat_sir)")
     if args.family == "votenet":
-        raise NotImplementedError(
-            f"the {args.family!r} family is not ported yet")
+        print(json.dumps(bench_votenet(args.frames, args.train, args.dataset,
+                                       args.device,
+                                       profile_n=args.profile)))
+        return
     if args.family == "annotate":
         print(json.dumps(bench_annotate(args.frames, args.device,
                                         args.profile)))
@@ -729,11 +914,12 @@ def main(argv=None) -> None:
                                profile_n=args.profile)))
         return
     args.dtype = args.dtype or "bfloat16"
-    if args.family == "ococcnet":
+    if args.family in ("ococcnet", "ctrl"):
         bench = bench_ococcnet_train if args.train else bench_ococcnet
         print(json.dumps(bench(
             args.frames, args.dtype, args.eval_layout, args.device,
-            profile_n=args.profile)))
+            profile_n=args.profile, cfg=occ_bench_config(
+                args.family, args.segmentor, args.remat))))
         return
     bench = bench_sst_train if args.train else bench_sst
     print(json.dumps(bench(args.frames, args.dtype, args.device,

@@ -1,5 +1,5 @@
 """Evaluation CLI of the port (counterpart of the JAX repository's
-``tools/test.py``; every family but ``votenet``).
+``tools/test.py``).
 
     python -m objectcentricocccompletion_torch.tools.test ococcnet \\
         --proposals data/proposals.pkl --gt-candidates data/cands.pkl \\
@@ -9,7 +9,7 @@
         [--no-occ] [--max-tracklets N] [--eval-layout dense|packed] \\
         [--tiny] [--device cuda]
     python -m objectcentricocccompletion_torch.tools.test \\
-        sst|centerpoint|fsd|fsd2|fsdpp \\
+        sst|centerpoint|fsd|fsd2|fsdpp|votenet [--dataset waymo] \\
         --infos data/infos.pkl --data-root data \\
         --ckpt-dir work_dirs/sst/ckpt [--metric kitti|waymo] \\
         [--score-thresh 0.1] [--max-frames N] [--out-dir DIR] [--tiny] \\
@@ -21,10 +21,12 @@ over the test tracklets (every tracklet of at least one frame), write
 ``results.bin`` and ``gt.bin`` into ``--out-dir``, score them with the
 native Waymo metrics and, for ``ococcnet``, the occupancy IoU (``ctrl`` has
 no occupancy decoder). ``--eval-layout`` defaults to ``dense``.
-``sst`` / ``centerpoint`` / ``fsd`` / ``fsd2`` restore ``tools/train.py``'s
-checkpoint of the family and report KITTI AP (class ``Car``; CenterPoint's
-9-dof boxes are cut to 7) or the native Waymo mAP / mAPH over the frames
-of ``--infos``; ``fsdpp`` walks each segment's frames in time order with
+``sst`` / ``centerpoint`` / ``fsd`` / ``fsd2`` / ``votenet`` restore
+``tools/train.py``'s checkpoint of the family and report KITTI AP (class
+``Car`` on Waymo frames, the reader's classes on the other datasets of
+``--dataset``, as ``tools/train.py`` reads them; CenterPoint's 9-dof boxes
+are cut to 7) or, on Waymo frames, the native Waymo mAP / mAPH over the
+frames of ``--infos``; ``fsdpp`` walks each segment's frames in time order with
 its memory carried (``evaluate_detector_sequential``, which, as the JAX
 function, scores stage 1's boxes). The metrics are printed as JSON.
 Everything runs on ``--device`` (``cuda`` unless the caller asks for the
@@ -33,9 +35,7 @@ CPU).
 ``--num-sweeps N`` reads N earlier sweeps into each frame, with the
 time-lag column (the detector's ``point_dim`` 6), as training did.
 
-The flags of the JAX CLI are kept (``--device`` replaces ``--cpu``). Those
-of options not ported yet (the ``votenet`` family, other datasets) raise
-``NotImplementedError``.
+The flags of the JAX CLI are kept (``--device`` replaces ``--cpu``).
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ import argparse
 import dataclasses
 import json
 
-from ..data.frame_dataset import CLASS_MAP, FrameDataset
+from ..data.frame_dataset import CLASS_MAP
 from ..data.tracklet_dataset import TrackletDataset
 from ..evalx.detector_eval import (evaluate_detector,
                                   evaluate_detector_sequential,
@@ -52,8 +52,8 @@ from ..evalx.evaluator import Evaluator
 from ..models.ococcnet import OcOccNetWithLoss
 from ..training.trainer import CheckpointManager
 from ..utils.device import resolve_device
-from .train import (DETECTORS, FAMILIES, build_detector,
-                    ococc_train_config)
+from .train import (DATASETS, FAMILIES, build_detector, detector_config_kw,
+                    frame_dataset, ococc_train_config)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -68,9 +68,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--occ-root", default=None)
     # frame-family inputs (the detectors)
     p.add_argument("--infos", help="frame infos pkl")
-    p.add_argument("--dataset", choices=["waymo", "argo2", "nuscenes",
-                                         "lyft", "scannet", "sunrgbd"],
-                   default="waymo", help="frame dataset family")
+    p.add_argument("--dataset", choices=DATASETS, default="waymo",
+                   help="frame dataset family")
     p.add_argument("--data-root", help="frame data root")
     p.add_argument("--max-frames", type=int, default=None)
     p.add_argument("--score-thresh", type=float, default=0.1)
@@ -113,11 +112,8 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.model in ("ococcnet", "ctrl"):
         metrics = _eval_tracklets(args)
-    elif args.model in DETECTORS:
-        metrics = _eval_detector(args)
     else:
-        raise NotImplementedError(
-            f"evaluation of the {args.model!r} family is not ported yet")
+        metrics = _eval_detector(args)
     print(json.dumps(metrics, indent=2, default=float), flush=True)
     return metrics
 
@@ -145,19 +141,21 @@ def _eval_tracklets(args) -> dict:
 
 
 def _eval_detector(args) -> dict:
-    if args.dataset != "waymo":
-        raise NotImplementedError(
-            f"the {args.dataset!r} dataset is not ported yet")
-    if not args.infos or not args.data_root:
+    if not args.data_root or not (args.infos or args.dataset == "argo2"):
         raise SystemExit(
             f"{args.model} evaluation needs --infos and --data-root")
+    if args.dataset != "waymo" and (args.metric == "waymo"
+                                    or args.model == "fsdpp"):
+        raise SystemExit("--metric waymo and fsdpp read Waymo frames; "
+                         f"--dataset {args.dataset} takes --metric kitti")
     dev = resolve_device(args.device)
-    frame_kw = dict(max_points=4096, max_gt=32) if args.tiny else {}
-    ds = FrameDataset(args.infos, args.data_root,
-                      num_sweeps=args.num_sweeps, **frame_kw)
+    ds = frame_dataset(args.dataset, args.infos, args.data_root, args.tiny,
+                       num_sweeps=args.num_sweeps)
     print(f"dataset: {len(ds)} frames", flush=True)
     model = build_detector(args.model, args.tiny, device=dev,
-                           point_dim=ds.point_dim)
+                           point_dim=ds.point_dim,
+                           **detector_config_kw(args.model, ds,
+                                                args.dataset))
     _restore(model, args.ckpt_dir)
     model.eval()
     # every class of the frames' labels, so that no GT label falls outside
@@ -173,7 +171,9 @@ def _eval_detector(args) -> dict:
         return evaluate_detector_waymo(
             model, args.model, ds, args.out_dir, classes=every_class,
             score_thresh=args.score_thresh, max_frames=args.max_frames)
+    # the reader's class names key the KITTI-protocol AP, as in the JAX CLI
     return evaluate_detector(model, args.model, ds,
+                             classes=tuple(getattr(ds, "classes", ("Car",))),
                              score_thresh=args.score_thresh,
                              max_frames=args.max_frames)
 

@@ -1,11 +1,11 @@
 """Training CLI of the port (counterpart of the JAX repository's
-``tools/train.py``; every family but ``votenet``).
+``tools/train.py``).
 
     python -m objectcentricocccompletion_torch.tools.train ococcnet \\
         --proposals data/proposals.pkl --gt-candidates data/cands.pkl \\
         --poses data/poses.pkl --occ-root data/occ_gt --total-steps 1000 \\
-        [--ctrl-class veh] [--fixed-ae] [--dtype bfloat16] [--tiny] \\
-        [--device cuda] [--work-dir DIR]
+        [--ctrl-class veh] [--fixed-ae] [--dtype bfloat16] \\
+        [--loader-workers N] [--tiny] [--device cuda] [--work-dir DIR]
     python -m objectcentricocccompletion_torch.tools.train sst \\
         --infos data/infos.pkl --data-root data --total-steps 1000 \\
         [--dtype bfloat16] [--augment] [--gt-sample N] [--num-sweeps N] \\
@@ -19,12 +19,17 @@
     python -m objectcentricocccompletion_torch.tools.train fsdpp \\
         --infos data/infos.pkl --data-root data --total-steps 1000 \\
         [--seq-window 2] [--tiny] [--device cuda] [--work-dir DIR]
+    python -m objectcentricocccompletion_torch.tools.train votenet \\
+        --dataset scannet|sunrgbd --infos data/infos.pkl --data-root data \\
+        --total-steps 1000 [--tiny] [--device cuda] [--work-dir DIR]
 
 ``ococcnet`` / ``ctrl`` build ``OcOccNetConfig()`` (``--tiny``:
 ``tiny_config()``; ``ctrl``: the CTRL class variant of ``--ctrl-class``),
 read the tracklets with ``TrackletDataset`` and train with
 ``training/trainer.py::train``; ``data/loader.py::write_synthetic_dataset``
-writes a dataset in the reference's layout for it. ``sst`` builds
+writes a dataset in the reference's layout for it. ``--loader-workers N``
+builds their samples in N processes (``PrefetchLoader``; the same batches
+for any N). ``sst`` builds
 ``SSTDetector`` (the full-width ``SSTDetectorConfig()``, or the tiny one
 with ``--tiny``), reads the frames with ``FrameDataset`` (``--tiny``: 4096
 points and 32 boxes per frame, as the JAX CLI) and trains with
@@ -41,6 +46,17 @@ their ``compute_dtype``. ``fsdpp`` trains FSD++ (``FSDPPConfig()``, or
 ``tiny_fsdpp_config()``) on windows of ``--seq-window`` consecutive frames
 of each segment with ``training/seq_trainer.py::train_fsdpp``, which, as
 the JAX CLI's call, logs every 50 steps whatever ``--log-interval`` says.
+``votenet`` trains ``VoteNet`` (``VoteNetConfig()`` with the dataset's
+classes and, for ``sunrgbd``, yaw; ``--tiny``: ``tiny_votenet_config()``)
+on its loss, float32 (``--dtype`` does not apply).
+``--dataset`` picks the frame reader of every detector family: ``waymo``
+(``FrameDataset``), ``nuscenes`` / ``lyft`` (``data/nuscenes_dataset.py``),
+``scannet`` / ``sunrgbd`` (``data/indoor_dataset.py``) or ``argo2``
+(``data/argo2_dataset.py``, which needs pandas and pyarrow; ``--data-root``
+is the dataset's root and ``--infos`` the split's name, ``train`` by
+default). The detector's input width follows the reader's
+``point_dim``. The frame pipeline's flags below read Waymo frames: with
+another dataset they are ignored, as the JAX CLI ignores them.
 ``--occ-pred-root`` merges the predicted occupancy points that
 ``Evaluator.run(save_occ_root=...)`` writes into every frame family's
 frames (W8). Every frame family takes the frame training pipeline of
@@ -54,10 +70,10 @@ a ``torch.Generator`` seeded with ``--seed``; everything runs on
 ``--device`` (``cuda`` unless the caller asks for the CPU). ``--dtype``
 sets the compute dtype; parameters stay float32.
 
-The flags of the JAX CLI are kept. Those of options not ported yet (the
-``votenet`` family, other datasets, ``--tp``, ``--fsdp``,
-``--sequence-parallel``, ``--loader-workers`` > 0, the multi-host launch)
-raise ``NotImplementedError``.
+The flags of the JAX CLI are kept. Those of options not ported yet
+(``--tp``, ``--fsdp``, ``--sequence-parallel``, the multi-host launch)
+raise ``NotImplementedError``, and so does ``--loader-workers`` of a
+detector family, which the JAX CLI accepts and ignores.
 """
 from __future__ import annotations
 
@@ -70,8 +86,11 @@ import torch
 from ..configs.ococcnet_config import (OcOccNetConfig, ctrl_cyc_config,
                                        ctrl_ped_config, ctrl_veh_config,
                                        tiny_config)
+from ..data.argo2_dataset import Argo2Dataset
 from ..data.dbsampler import DBSampler, GTDatabase
 from ..data.frame_dataset import FrameDataset
+from ..data.indoor_dataset import ScanNetDataset, SUNRGBDDataset
+from ..data.nuscenes_dataset import LyftDataset, NuScenesDataset
 from ..data.tracklet_dataset import TrackletDataset
 from ..models.centerpoint import (CenterPointConfig, DynamicCenterPoint,
                                   tiny_centerpoint_config)
@@ -81,6 +100,7 @@ from ..models.fsd_two_stage import (TwoStageFSD, TwoStageFSDConfig,
 from ..models.fsdpp import FSDPP, FSDPPConfig, tiny_fsdpp_config
 from ..models.sst_detector import (SSTDetector, SSTDetectorConfig,
                                    tiny_sst_detector_config)
+from ..models.votenet import VoteNet, VoteNetConfig, tiny_votenet_config
 from ..training.detector_trainer import train_detector
 from ..training.seq_trainer import train_fsdpp
 from ..training.trainer import train
@@ -88,6 +108,7 @@ from ..utils.device import resolve_device
 
 FAMILIES = ["ococcnet", "ctrl", "centerpoint", "sst", "fsd", "fsd2",
             "fsdpp", "votenet"]
+DATASETS = ["waymo", "argo2", "nuscenes", "lyft", "scannet", "sunrgbd"]
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -99,9 +120,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--poses")
     p.add_argument("--occ-root", default=None)
     p.add_argument("--infos", help="frame infos pkl")
-    p.add_argument("--dataset", choices=["waymo", "argo2", "nuscenes",
-                                         "lyft", "scannet", "sunrgbd"],
-                   default="waymo", help="frame dataset family")
+    p.add_argument("--dataset", choices=DATASETS, default="waymo",
+                   help="frame dataset family")
     p.add_argument("--data-root", help="frame data root")
     p.add_argument("--occ-pred-root", default=None,
                    help="merge predicted occupancy points (W8)")
@@ -147,8 +167,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--fsdp", action="store_true",
                    help="sharded parameters and moments (not ported)")
     p.add_argument("--loader-workers", type=int, default=0,
-                   help="sample-building worker processes (not ported); 0: "
-                        "in-process build with a prefetch thread")
+                   help="ococcnet / ctrl: sample-building worker processes; "
+                        "0: in-process build with a prefetch thread")
     p.add_argument("--sequence-parallel", action="store_true",
                    help="sharded point / query axes (not ported)")
     p.add_argument("--coordinator", default=None,
@@ -181,7 +201,9 @@ def ococc_train_config(model: str = "ococcnet", tiny: bool = False,
 def _refuse_unported(args: argparse.Namespace) -> None:
     unported = {"--tp": args.tp > 1, "--fsdp": args.fsdp,
                 "--sequence-parallel": args.sequence_parallel,
-                "--loader-workers": args.loader_workers > 0,
+                "--loader-workers of a detector family":
+                    args.loader_workers > 0
+                    and args.model not in ("ococcnet", "ctrl"),
                 "the multi-host launch (--coordinator, --num-processes)":
                     args.coordinator is not None
                     or (args.num_processes or 1) > 1}
@@ -229,9 +251,23 @@ def fsdpp_train_config(tiny: bool = False, dtype: str | None = None
     return dataclasses.replace(cfg, fsd=fsd_train_config(tiny, dtype))
 
 
+def votenet_train_config(tiny: bool = False, dtype: str | None = None,
+                         num_classes: int = 18, with_yaw: bool = False
+                         ) -> VoteNetConfig:
+    """VoteNet for ``num_classes`` classes (float32; ``dtype`` does not
+    apply, as in the JAX CLI)."""
+    if tiny:
+        return tiny_votenet_config(min(num_classes, 4))
+    return VoteNetConfig(num_classes=num_classes, with_yaw=with_yaw)
+
+
 def with_point_dim(cfg, point_dim: int):
     """``cfg`` with points ``point_dim`` wide (on the sub-config that holds
-    the VFE: ``sst`` of SST, ``fsd`` of the two-stage families)."""
+    the VFE: ``sst`` of SST, ``fsd`` of the two-stage families; VoteNet
+    reads at most ``in_feats`` columns after xyz)."""
+    if isinstance(cfg, VoteNetConfig):
+        return dataclasses.replace(cfg,
+                                   in_feats=min(cfg.in_feats, point_dim - 3))
     for sub in ("sst", "fsd"):
         if hasattr(cfg, sub):
             return dataclasses.replace(cfg, **{sub: dataclasses.replace(
@@ -246,22 +282,47 @@ DETECTORS = {
     "fsd": (FSD, fsd_train_config),
     "fsd2": (TwoStageFSD, fsd2_train_config),
     "fsdpp": (FSDPP, fsdpp_train_config),
+    "votenet": (VoteNet, votenet_train_config),
 }
 
 
 def build_detector(family: str, tiny: bool = False, dtype: str | None = None,
                    device="cuda", generator: torch.Generator | None = None,
-                   point_dim: int = 5):
+                   point_dim: int = 5, **config_kw):
     """The detector of ``family`` (a key of ``DETECTORS``) that the CLIs
-    train and evaluate, for points ``point_dim`` wide (``FrameDataset.
-    point_dim``), on ``device``; weights from ``generator`` when one is
-    given. Its ``loss`` is the family's training loss."""
-    if family not in DETECTORS:
-        raise NotImplementedError(
-            f"the {family!r} detector family is not ported yet")
+    train and evaluate, for points ``point_dim`` wide (the reader's
+    ``point_dim``), on ``device``; weights from ``generator`` when one is
+    given. ``config_kw`` go to the family's config function
+    (``detector_config_kw``). Its ``loss`` is the family's training loss."""
     cls, config = DETECTORS[family]
-    return cls(with_point_dim(config(tiny, dtype), point_dim), device=device,
-               generator=generator)
+    return cls(with_point_dim(config(tiny, dtype, **config_kw), point_dim),
+               device=device, generator=generator)
+
+
+def detector_config_kw(family: str, ds, dataset: str) -> dict:
+    """VoteNet's classes (the reader's, 18 where it has none) and its yaw
+    (``sunrgbd``), as the JAX CLIs set them; nothing for the other
+    families."""
+    if family != "votenet":
+        return {}
+    return dict(num_classes=len(getattr(ds, "classes", range(18))),
+                with_yaw=dataset == "sunrgbd")
+
+
+def frame_dataset(dataset: str, infos: str | None, data_root: str,
+                  tiny: bool = False, **waymo_kw):
+    """The frame reader of ``dataset`` (``--tiny``: 4096 points and 32
+    boxes per frame); ``waymo_kw`` (the frame pipeline's options) go to
+    ``FrameDataset`` only. For ``argo2`` ``data_root`` is the dataset's
+    root and ``infos`` the split's name."""
+    frame_kw = dict(max_points=4096, max_gt=32) if tiny else {}
+    if dataset == "waymo":
+        return FrameDataset(infos, data_root, **waymo_kw, **frame_kw)
+    if dataset == "argo2":
+        return Argo2Dataset(data_root, infos or "train", **frame_kw)
+    cls = {"nuscenes": NuScenesDataset, "lyft": LyftDataset,
+           "scannet": ScanNetDataset, "sunrgbd": SUNRGBDDataset}[dataset]
+    return cls(infos, data_root, **frame_kw)
 
 
 def attach_gt_sampler(ds: FrameDataset, gt_sample: int,
@@ -298,29 +359,36 @@ def main(argv=None,
         return train(cfg, ds, args.work_dir, total_steps=args.total_steps,
                      ckpt_interval=args.ckpt_interval,
                      log_interval=args.log_interval, resume=not args.no_resume,
-                     seed=args.seed, device=dev, hooks=hooks)
-    if args.model not in DETECTORS:
-        raise NotImplementedError(
-            f"training of the {args.model!r} family is not ported yet")
-    if args.dataset != "waymo":
-        raise NotImplementedError(
-            f"the {args.dataset!r} dataset is not ported yet")
-    if not args.infos or not args.data_root:
+                     seed=args.seed, device=dev, hooks=hooks,
+                     loader_workers=args.loader_workers)
+    if not args.data_root or not (args.infos or args.dataset == "argo2"):
         raise SystemExit(
             f"{args.model} training needs --infos and --data-root")
+    if args.model == "fsdpp" and args.dataset != "waymo":
+        raise SystemExit("fsdpp trains on the segments of Waymo frames")
     dev = resolve_device(args.device)
-    frame_kw = dict(max_points=4096, max_gt=32) if args.tiny else {}
-    ds = FrameDataset(args.infos, args.data_root,
-                      occ_pred_root=args.occ_pred_root,
-                      augment=args.augment, num_sweeps=args.num_sweeps,
-                      **frame_kw)
+    ds = frame_dataset(args.dataset, args.infos, args.data_root, args.tiny,
+                       occ_pred_root=args.occ_pred_root,
+                       augment=args.augment, num_sweeps=args.num_sweeps)
     print(f"dataset: {len(ds)} frames", flush=True)
-    if args.gt_sample > 0:
+    if args.dataset != "waymo":
+        ignored = [flag for flag, used in (
+            ("--augment", args.augment), ("--gt-sample", args.gt_sample),
+            ("--num-sweeps", args.num_sweeps),
+            ("--occ-pred-root", args.occ_pred_root),
+            ("--disable-aug-after", args.disable_aug_after is not None))
+            if used]
+        if ignored:
+            print(f"{' '.join(ignored)}: Waymo frames only, ignored for "
+                  f"--dataset {args.dataset}", flush=True)
+    elif args.gt_sample > 0:
         attach_gt_sampler(ds, args.gt_sample, args.gt_db_cache,
                           args.gt_db_min_points, args.seed)
     model = build_detector(args.model, args.tiny, args.dtype, dev,
                            torch.Generator().manual_seed(args.seed),
-                           point_dim=ds.point_dim)
+                           point_dim=ds.point_dim,
+                           **detector_config_kw(args.model, ds,
+                                                args.dataset))
     if args.model == "fsdpp":
         return train_fsdpp(model, ds, args.work_dir,
                            total_steps=args.total_steps or 1000,

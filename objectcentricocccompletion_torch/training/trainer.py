@@ -101,7 +101,8 @@ class MetricLogger:
 def train(cfg, dataset, work_dir: str, total_steps: int | None = None,
           ckpt_interval: int = 1000, log_interval: int = 50,
           resume: bool = True, seed: int = 0, device="cuda",
-          hooks: Sequence[Callable[[int, dict], None]] = ()) -> int:
+          hooks: Sequence[Callable[[int, dict], None]] = (),
+          loader_workers: int = 0) -> int:
     """Train OcOccNet (``cfg``) on ``dataset`` (a ``TrackletDataset``) on
     one device (``cuda`` unless the caller asks for the CPU), from weights
     drawn with ``seed``: ``cfg.batch_size`` tracklets per step,
@@ -110,15 +111,17 @@ def train(cfg, dataset, work_dir: str, total_steps: int | None = None,
     (the step's) and ``tracklets_per_sec``; a checkpoint to
     ``work_dir/ckpt`` every ``ckpt_interval`` steps and at the end; with
     ``resume`` the newest checkpoint there is loaded first. A thread builds
-    the next batches while the device runs.
+    the next batches while the device runs; with ``loader_workers`` above
+    0 it collects them from that many sample-building processes
+    (``PrefetchLoader``), whose batches are the same for any count.
     Each hook is called as ``hook(step, metrics)`` after every step
     (``step`` counts the steps done). Returns the number of steps done."""
     dev = resolve_device(device)
     batch_size = cfg.batch_size
     if total_steps is None:
         total_steps = max(len(dataset) // batch_size, 1) * cfg.max_epochs
-    loader = ThreadPrefetcher(make_loader(dataset, batch_size, seed=seed),
-                              depth=2)
+    loader = ThreadPrefetcher(make_loader(dataset, batch_size, seed=seed,
+                                          workers=loader_workers), depth=2)
     try:
         model, optimizer, schedule = create_train_state(cfg, total_steps,
                                                         dev, seed)

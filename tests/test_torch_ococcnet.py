@@ -368,10 +368,24 @@ def check_predict_and_decode(name):
 
 
 def test_unported_options_raise():
+    """``use_segmentor`` and ``remat_sir`` build (their parity is in
+    ``test_torch_segmentor.py`` and ``test_torch_remat_loader.py``); an
+    unknown segmentor raises."""
     tiny = tcfgm.tiny_config()
-    for kw in ({"use_segmentor": "tiny"}, {"remat_sir": True}):
-        with pytest.raises(NotImplementedError):
-            tnet.OcOccNetWithLoss(dataclasses.replace(tiny, **kw), "cpu")
+    seg = tnet.OcOccNetWithLoss(dataclasses.replace(
+        tiny, use_segmentor="tiny"), "cpu").net
+    width = seg.segmentor.out_channels
+
+    def in_width(net):
+        return net.roi_encoder.block_0.vfe_0.Dense_0.in_features
+
+    assert width == 32 and in_width(seg) == in_width(tnet.OcOccNet(tiny)) \
+        + width
+    assert tnet.OcOccNetWithLoss(dataclasses.replace(
+        tiny, remat_sir=True), "cpu").cfg.remat_sir
+    with pytest.raises(ValueError, match="use_segmentor"):
+        tnet.OcOccNetWithLoss(dataclasses.replace(tiny, use_segmentor="x"),
+                              "cpu")
     model = tnet.OcOccNetWithLoss(tiny, "cpu")
     b = synthetic_batch(tiny)
     # the losses and dropout are ported: a training forward with a nonzero

@@ -391,8 +391,8 @@ def test_predict_fn_shapes_and_decode(tiny):
                                rtol=0)
     np.testing.assert_allclose(boxes.numpy(), np.asarray(ref[0]), atol=1e-5,
                                rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="votenet"):
-        make_predict_fn(model, "votenet")
+    with pytest.raises(ValueError, match="unknown detector family"):
+        make_predict_fn(model, "pointpillars")
 
 
 def test_tiny_detector_bf16_runs_close_to_fp32(tiny):

@@ -170,9 +170,12 @@ def test_cli_trains_logs_checkpoints_and_resumes(frames, tmp_path):
     assert ckpt["step"] == 2 and "model" in ckpt and "optimizer" in ckpt
 
 
-@pytest.mark.parametrize("extra", [["votenet"], ["sst", "--tp", "2"],
-                                   ["sst", "--dataset", "nuscenes"],
-                                   ["sst", "--dataset", "argo2"],
+@pytest.mark.parametrize("extra", [["votenet", "--fsdp"],
+                                   ["sst", "--tp", "2"],
+                                   ["sst", "--dataset", "nuscenes",
+                                    "--sequence-parallel"],
+                                   ["sst", "--dataset", "argo2",
+                                    "--num-processes", "2"],
                                    ["sst", "--loader-workers", "2"]])
 def test_cli_refuses_what_is_not_ported(frames, extra):
     info, root = frames
