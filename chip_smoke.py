@@ -5,7 +5,9 @@ training and evaluation paths of CenterPoint, of the FSD family and of
 FSD++, FSDv2 training on predicted occupancy (W8), the W1 occupancy
 annotator, the data-prep CLI and augmented multi-sweep training, CTRL with
 its tracklet segmentor, SIR remat, the tracklet loader's worker processes,
-VoteNet on indoor scenes and SST on nuScenes frames, on one CUDA card.
+VoteNet on indoor scenes and SST on nuScenes frames, checkpoint surgery,
+the serving export, and data-parallel training and sharded evaluation, on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -254,11 +256,40 @@ Phases, each of which fails the run (non-zero exit) on any error:
     launches per level per step) and ``tools/test.py sst --dataset
     nuscenes`` (12 forward per level per frame); one Lyft sample of the
     same files with its sweep.
-36. Print the kernels' JSON line (the bf16 and the float32 tensor-core
+36. Surgery: ``tools/publish_model.py publish`` of phase 8's checkpoint
+    twice (the same ``-{hash8}`` name, no optimizer state); predict from
+    ``restore_params`` equals the source checkpoint's bit for bit
+    (deterministic kernels); ``transplant`` of phase 19's FSD ``vfe.`` and
+    ``unet.`` into a one-step CTRL-with-segmentor checkpoint (the copied /
+    missing / mismatch counts printed), then one CTRL step from it.
+37. Serving: ``save_bundle`` of ``OcOccNetConfig()`` (float32) on the card
+    in both layouts, ``load_bundle`` in a fresh process whose imports of
+    the port's ``models``, ``ops`` and ``configs`` raise; served against
+    live at ``FP32_OCC_CPU_ATOL``; the export's seconds, the bundle's MB,
+    ms per batch of 4 served and live (the batch on the card for both),
+    and a trace of each (kernels, device busy and wall ms per batch).
+38. OcOccNet data-parallel, float32 (TF32 off, the config's dropout):
+    (a) DDP in an NCCL group of one rank, (b) two ranks over gloo on
+    ``cuda:0`` at batch 4 each, against the plain step at batch 8: losses
+    and every parameter at phase 8's card bars; the ranks' parameters
+    bit-equal; ms per step of each.
+39. SST data-parallel, float32 (TF32 off): two ranks over gloo on
+    ``cuda:0``, two dense frames each (the first under DDP's
+    ``no_sync``), against one process on all four: every clipped gradient
+    at phase 6's bars; 12 forward and 12 backward window-attention
+    launches per level per frame and step on each rank.
+40. Sharded evaluation: ``Evaluator.run`` of phase 8's checkpoint on two
+    ranks (tracklets round-robin) against one process, deterministic
+    kernels: ``results.bin`` is the shards' bytes in rank order, its
+    objects the one process's as a multiset, every metric equal.
+    Each run of 37-40 is a process group of its own, killed at
+    ``RANK_WAIT`` s; one card's ranks measure the collectives' overhead,
+    not scaling.
+41. Print the kernels' JSON line (the bf16 and the float32 tensor-core
     kernels, each level apart; launches of the bf16 frames and bf16
-    training, and of the float32 frame, float32, augmented and nuScenes
-    training and the SST evaluations), then as the last line ``{"ok":
-    true, "device": {...}}``.
+    training, and of the float32 frame, float32, augmented, nuScenes and
+    data-parallel training (both ranks) and the SST evaluations), then as
+    the last line ``{"ok": true, "device": {...}}``.
 
 The Argoverse 2 reader needs pandas and pyarrow, which the card's machine
 lacks: the CPU tests hold it, this script does not drive it.
@@ -270,6 +301,7 @@ import collections
 import contextlib
 import dataclasses
 import glob
+import inspect
 import io
 import json
 import os
@@ -321,8 +353,12 @@ from objectcentricocccompletion_torch.tools import (
     create_submission as submission_cli)
 from objectcentricocccompletion_torch.tools import test as test_cli
 from objectcentricocccompletion_torch.tools import train as train_cli
+from objectcentricocccompletion_torch.serving import save_bundle
+from objectcentricocccompletion_torch.tools import (
+    publish_model as publish_cli)
+from objectcentricocccompletion_torch.training import surgery
 from objectcentricocccompletion_torch.training.detector_trainer import (
-    make_detector_train_step)
+    FrameBatch, make_detector_train_step)
 from objectcentricocccompletion_torch.training.optim import make_optimizer
 from objectcentricocccompletion_torch.training.seq_trainer import (
     SeqWindow, make_seq_train_step)
@@ -570,6 +606,18 @@ NUS_POINTS = 30000
 NUS_TRAIN_STEPS = 2
 AUG_ARGS = ("--augment", "--gt-sample", "2", "--num-sweeps", "2",
             "--disable-aug-after", "2")
+# 36-40: every multi-rank run (and every process of a phase's own) is a
+# process group of its own, killed at this many seconds
+RANK_WAIT = 300.0
+# steps of each data-parallel run: the first is compared, the rest timed
+DDP_STEPS = 3
+# phase 38's global batch (half on each of two ranks)
+DDP_OCC_BATCH = 8
+# phase 39's frames per rank of two (a rank's first frame under no_sync)
+DDP_SST_FRAMES = 2
+OCC_LOSSES = ("loss", "loss_rcnn_cls", "loss_rcnn_bbox", "loss_rcnn_occ")
+# timed batches of a served bundle
+SERVE_TIMED = 10
 
 
 def log(msg):
@@ -3379,6 +3427,611 @@ def phase_nuscenes(dev, keep):
     return ({T: fwd[T] + efwd[T] for T in expect}, bwd)
 
 
+def run_ranks(argvs, what, timeout=RANK_WAIT, env=None):
+    """Each argv in a subprocess that leads a process group of its own,
+    from the repository's root, its output in a file; every group still
+    running at ``timeout`` seconds is killed, which fails the phase with
+    the outputs. Returns the outputs."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as logs:
+        files = [open(os.path.join(logs, f"{i}.log"), "w+")
+                 for i in range(len(argvs))]
+        procs = [subprocess.Popen(argv, cwd=root, stdout=f,
+                                  stderr=subprocess.STDOUT, text=True,
+                                  env={**os.environ, **(env or {})},
+                                  start_new_session=True)
+                 for argv, f in zip(argvs, files)]
+        deadline = time.monotonic() + timeout
+        late = False
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+            except subprocess.TimeoutExpired:
+                late = True
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+        outs = []
+        for f in files:
+            f.seek(0)
+            outs.append(f.read())
+            f.close()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        log(f"{what}, process {i} (exit {p.returncode}):\n"
+            + out.rstrip()[-4000:])
+    if late:
+        raise AssertionError(f"{what}: no end within {timeout} s")
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"{what}: exit codes "
+                             f"{[p.returncode for p in procs]}")
+    return outs
+
+
+def rank_argv(fn, *args):
+    """``python -c "import chip_smoke; chip_smoke.fn(*args)"``."""
+    return [sys.executable, "-c", f"import chip_smoke; chip_smoke.{fn}"
+            f"({', '.join(repr(a) for a in args)})"]
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def occ_ddp_config():
+    """Phase 38's config: ``OcOccNetConfig()`` in float32 (the training
+    CLI's, packed layout, the config's dropout on) at lr ``OCC_STEP_LR``."""
+    return dataclasses.replace(train_cli.ococc_train_config(dtype="float32"),
+                               base_lr=OCC_STEP_LR)
+
+
+def ococc_ddp_run(dev, batch, plain=False):
+    """``DDP_STEPS`` float32 steps of phase 38's config from the seeded init
+    on ``batch`` (under the process group that is up, if any): the first
+    step's metrics and parameters (``plain``: and clipped gradients), every
+    step's ms and the peak memory."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, optimizer, schedule = create_train_state(occ_ddp_config(), 100,
+                                                    dev, 0)
+    step_fn = make_train_step(model, optimizer, schedule)
+    times = []
+    for k in range(DDP_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = step_fn(k, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        if k == 0:
+            res = dict(metrics={n: float(v) for n, v in metrics.items()},
+                       params={n: p.detach().cpu().clone()
+                               for n, p in model.named_parameters()},
+                       lr=schedule(0))
+            if plain:
+                res["grads"] = {n: p.grad.cpu()
+                                for n, p in model.named_parameters()}
+    res.update(ms=times,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    return res
+
+
+def ococc_rank(rank, world, port, out):
+    """One rank of phase 38 in a process of its own: ``world`` 1, DDP in an
+    NCCL group of one rank on the global batch; else rank ``rank`` of
+    ``world`` over gloo on ``cuda:0``, on its slice."""
+    import torch.distributed as dist
+    from objectcentricocccompletion_torch.parallel import multihost
+    batch = synthetic_batch(occ_ddp_config(), batch_size=DDP_OCC_BATCH,
+                            seed=0)
+    if world == 1:
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                                f"{port}", world_size=1, rank=0)
+        dev = torch.device("cuda")
+    else:
+        dev = multihost.initialize(f"127.0.0.1:{port}", world, rank, "gloo",
+                                   "cuda")
+        per = DDP_OCC_BATCH // world
+        batch = TrackletBatch(*(x[rank * per:(rank + 1) * per]
+                                for x in batch))
+    res = ococc_ddp_run(dev, batch)
+    multihost.shutdown()
+    torch.save(res, os.path.join(out, f"ococc_{world}_{rank}.pt"))
+
+
+def compare_occ_steps(what, got, ref):
+    """Phase 8's float32-step bars (``phase_ococc_fp32_step``) between two
+    card runs: the loss dict, ``grad_norm``, every parameter after the
+    update (2 lr apart where the reference's gradient lies within the
+    gradient bar of 0, else 1e-3 lr, plus rounding). Returns whether the
+    parameters are bit-equal."""
+    for k, v in ref["metrics"].items():
+        err = abs(got["metrics"][k] - v)
+        tol = (OCC_STEP_GRAD_NORM_RTOL * v if k == "grad_norm"
+               else OCC_STEP_LOSS_ATOL)
+        if not err <= tol:
+            raise AssertionError(f"{what}: {k} {got['metrics'][k]} vs {v}")
+    lr = ref["lr"]
+    near = far = 0.0
+    for n, p in ref["params"].items():
+        diff = (got["params"][n] - p).abs()
+        small = ref["grads"][n].abs() < OCC_STEP_GRAD_ATOL
+        near = max(near, float(torch.where(small, diff, 0).max()))
+        far = max(far, float(torch.where(small, 0, diff).max()))
+    equal = all(torch.equal(got["params"][n], p)
+                for n, p in ref["params"].items())
+    log(f"{what}: losses {[round(got['metrics'][k], 6) for k in OCC_LOSSES]}"
+        f" vs {[round(ref['metrics'][k], 6) for k in OCC_LOSSES]}, "
+        f"grad_norm {got['metrics']['grad_norm']:.6f} vs "
+        f"{ref['metrics']['grad_norm']:.6f}; parameters after the update at "
+        f"lr {lr:.1e}: {near:.3e} where |g| < {OCC_STEP_GRAD_ATOL} "
+        f"(tolerance {OCC_STEP_ROUNDING + 2 * lr:.3e}), {far:.3e} elsewhere "
+        f"(tolerance {OCC_STEP_ROUNDING + 1e-3 * lr:.3e}); bit-equal: "
+        f"{equal}")
+    if not (near <= OCC_STEP_ROUNDING + 2 * lr
+            and far <= OCC_STEP_ROUNDING + 1e-3 * lr):
+        raise AssertionError(f"{what}: parameters {near}, {far}")
+    return equal
+
+
+def phase_ococc_ddp(dev):
+    """38. Data-parallel OcOccNet training, float32 (TF32 off, dropout on,
+    lr ``OCC_STEP_LR``) at the full width of ``OcOccNetConfig()``,
+    ``DDP_STEPS`` steps from the same init on ``synthetic_batch`` of
+    ``DDP_OCC_BATCH`` tracklets: the plain step in this process; (a) DDP
+    in an NCCL group of one rank against it, (b) two ranks over gloo on
+    ``cuda:0`` (half the batch each) against it, their parameters
+    bit-equal. Each run of (a) and (b) a process group of its own, killed
+    at ``RANK_WAIT`` s."""
+    torch.cuda.empty_cache()
+    plain = ococc_ddp_run(dev, synthetic_batch(
+        occ_ddp_config(), batch_size=DDP_OCC_BATCH, seed=0), plain=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        run_ranks([rank_argv("ococc_rank", 0, 1, free_port(), out)],
+                  "ococcnet ddp nccl x1")
+        port = free_port()
+        run_ranks([rank_argv("ococc_rank", r, 2, port, out) for r in (0, 1)],
+                  "ococcnet ddp gloo x2")
+        nccl = torch.load(os.path.join(out, "ococc_1_0.pt"),
+                          weights_only=False)
+        ranks = [torch.load(os.path.join(out, f"ococc_2_{r}.pt"),
+                            weights_only=False) for r in (0, 1)]
+    compare_occ_steps("ococcnet ddp (a) nccl x1 vs plain", nccl, plain)
+    compare_occ_steps("ococcnet ddp (b) gloo x2 vs plain", ranks[0], plain)
+    same = [n for n, p in ranks[0]["params"].items()
+            if torch.equal(p, ranks[1]["params"][n])]
+    if len(same) != len(ranks[0]["params"]):
+        raise AssertionError(f"ococcnet ddp: the ranks' parameters differ "
+                             f"in {len(ranks[0]['params']) - len(same)} "
+                             f"tensors")
+    card = card_info()
+    for name, res, b in (("plain", plain, DDP_OCC_BATCH),
+                         ("nccl x1", nccl, DDP_OCC_BATCH),
+                         ("gloo rank 0 of 2", ranks[0], DDP_OCC_BATCH // 2),
+                         ("gloo rank 1 of 2", ranks[1], DDP_OCC_BATCH // 2)):
+        timed = res["ms"][1:]
+        log(f"ococcnet ddp {name}: batch {b} per process, "
+            f"{statistics.median(timed):.3f} ms/step (median of steps 2-"
+            f"{DDP_STEPS}; all {[round(x, 3) for x in res['ms']]}), peak "
+            f"memory {res['peak_gib']:.3f} GiB; one card: the collectives' "
+            f"overhead, not scaling; card {card}")
+    log(f"ococcnet ddp: the two ranks' {len(same)} parameter tensors "
+        f"bit-equal")
+
+
+def sst_ddp_frames():
+    """Phase 39's global batch: ``2 * DDP_SST_FRAMES`` dense synthetic
+    frames (seeds 0, 1, ...) at the full width of the training CLI's
+    float32 SST."""
+    cfg = train_cli.sst_train_config()
+    frames = [bench.train_batch(cfg, "cpu", 150000, seed=s)
+              for s in range(2 * DDP_SST_FRAMES)]
+    return FrameBatch(*(torch.cat(parts) for parts in zip(*frames)))
+
+
+def sst_ddp_run(dev, batch):
+    """``DDP_STEPS`` float32 steps (TF32 off) of the full-width SST from the
+    seeded init on ``batch`` (under the process group that is up, if any):
+    the first step's metrics and clipped gradients, every step's ms, the
+    window-attention launches and the peak memory."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = SSTDetector(train_cli.sst_train_config(), dev,
+                        torch.Generator().manual_seed(0))
+    optimizer, schedule = make_optimizer(model.named_parameters(), 1e-5, 100)
+    step_fn = make_detector_train_step(model, optimizer, schedule)
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    times = []
+    for k in range(DDP_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = step_fn(k, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        if k == 0:
+            res = dict(metrics={n: float(v) for n, v in metrics.items()},
+                       grads={n: p.grad.cpu()
+                              for n, p in model.named_parameters()
+                              if p.grad is not None})
+    res.update(ms=times, fwd=dict(wa.LAUNCHES), bwd=dict(wa.BWD_LAUNCHES),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    return res
+
+
+def sst_rank(rank, world, port, out):
+    """Rank ``rank`` of ``world`` of phase 39, over gloo on ``cuda:0``, on
+    its ``DDP_SST_FRAMES`` frames of the global batch."""
+    from objectcentricocccompletion_torch.parallel import multihost
+    dev = multihost.initialize(f"127.0.0.1:{port}", world, rank, "gloo",
+                               "cuda")
+    lo = rank * DDP_SST_FRAMES
+    batch = FrameBatch(*(x[lo:lo + DDP_SST_FRAMES]
+                         for x in sst_ddp_frames()))
+    res = sst_ddp_run(dev, batch)
+    multihost.shutdown()
+    torch.save(res, os.path.join(out, f"sst_{rank}.pt"))
+
+
+def phase_sst_ddp(dev):
+    """39. Data-parallel SST training, float32 (the detector's default;
+    TF32 off) at the full width of ``SSTDetectorConfig()``: two ranks over
+    gloo on ``cuda:0``, ``DDP_SST_FRAMES`` dense frames each, against this
+    process on all their frames, ``DDP_STEPS`` steps each: the first
+    step's clipped gradients at ``phase_fp32_grad_check``'s bars; each
+    rank launches 12 forward and 12 backward window-attention kernels per
+    level per frame and step. Returns the launches (forward, backward) of
+    the three runs summed."""
+    torch.cuda.empty_cache()
+    one = sst_ddp_run(dev, sst_ddp_frames())
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        port = free_port()
+        run_ranks([rank_argv("sst_rank", r, 2, port, out) for r in (0, 1)],
+                  "sst ddp gloo x2")
+        ranks = [torch.load(os.path.join(out, f"sst_{r}.pt"),
+                            weights_only=False) for r in (0, 1)]
+    per_level = 2 * train_cli.sst_train_config().sst.num_blocks
+    expect = {T: per_level * DDP_STEPS * DDP_SST_FRAMES
+              for _, T in ATTN_SHAPES}
+    scale = max(float(g.abs().max()) for g in one["grads"].values())
+    if one["fwd"] != {T: 2 * n for T, n in expect.items()} or \
+            one["bwd"] != one["fwd"]:
+        raise AssertionError(f"sst one process: launches forward "
+                             f"{one['fwd']} backward {one['bwd']}")
+    fwd, bwd = collections.Counter(one["fwd"]), collections.Counter(
+        one["bwd"])
+    card = card_info()
+    for r, res in enumerate(ranks):
+        if res["fwd"] != expect or res["bwd"] != expect:
+            raise AssertionError(f"sst ddp rank {r}: launches forward "
+                                 f"{res['fwd']} backward {res['bwd']}, "
+                                 f"expected {expect} each")
+        fwd.update(res["fwd"])
+        bwd.update(res["bwd"])
+        worst = (0.0, "")
+        for n, ref in one["grads"].items():
+            err = float((res["grads"][n] - ref).abs().max())
+            tol = GRAD_RTOL * float(ref.abs().max()) + GRAD_FLOOR * scale
+            if not err <= tol:
+                raise AssertionError(f"sst ddp rank {r} gradient {n}: {err}"
+                                     f" > {tol}")
+            worst = max(worst, (err / tol, n))
+        log(f"sst ddp rank {r}: loss {res['metrics']['loss']:.6f} vs "
+            f"{one['metrics']['loss']:.6f} (one process), grad_norm "
+            f"{res['metrics']['grad_norm']:.6f} vs "
+            f"{one['metrics']['grad_norm']:.6f}; {len(one['grads'])} clipped "
+            f"gradients within the bar, worst {worst[1]} at {worst[0]:.3f} "
+            f"of it; launches over {DDP_STEPS} steps forward {res['fwd']} "
+            f"backward {res['bwd']}")
+    for name, res, b in (("one process", one, 2 * DDP_SST_FRAMES),
+                         ("gloo rank 0 of 2", ranks[0], DDP_SST_FRAMES),
+                         ("gloo rank 1 of 2", ranks[1], DDP_SST_FRAMES)):
+        log(f"sst ddp {name}: {b} frame(s) per process, "
+            f"{statistics.median(res['ms'][1:]):.3f} ms/step (median of "
+            f"steps 2-{DDP_STEPS}; all {[round(x, 3) for x in res['ms']]}), "
+            f"peak memory {res['peak_gib']:.3f} GiB; one card: the "
+            f"collectives' overhead, not scaling; card {card}")
+    return dict(fwd), dict(bwd)
+
+
+def eval_run(dev, data, ckpt, out):
+    """``Evaluator.run`` (float32, TF32 off, the dense eval layout, the
+    baseline, the Waymo metrics on rank 0; deterministic kernels) of the
+    checkpoint under ``ckpt`` on the tracklets under ``data``, into
+    ``out``, under the process group that is up, if any: the metrics and
+    the seconds."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(train_cli.ococc_train_config(),
+                              packed_point_budget=None)
+    ds = TrackletDataset(cfg=cfg, training=False, min_tracklet_length=1,
+                         **dataset_paths(data))
+    model = OcOccNetWithLoss(cfg, dev)
+    CheckpointManager(ckpt).restore(model)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t = time.perf_counter()
+        metrics = evaluator.Evaluator(model, ds, cfg, device=dev).run(
+            out, eval_occ_baseline=True)
+        seconds = time.perf_counter() - t
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return dict(metrics=metrics, seconds=seconds)
+
+
+def eval_rank(rank, world, port, data, ckpt, out):
+    """Rank ``rank`` of ``world`` of phase 40, over gloo on ``cuda:0``."""
+    from objectcentricocccompletion_torch.parallel import multihost
+    dev = multihost.initialize(f"127.0.0.1:{port}", world, rank, "gloo",
+                               "cuda")
+    res = eval_run(dev, data, ckpt, os.path.join(out, "ddp"))
+    multihost.shutdown()
+    torch.save(res, os.path.join(out, f"eval_{rank}.pt"))
+
+
+def phase_sharded_eval(dev, occ_dir):
+    """40. Sharded evaluation: ``Evaluator.run`` of phase 8's checkpoint
+    on its tracklets, two ranks over gloo on ``cuda:0`` (tracklets
+    round-robin) against this process: rank 0's ``results.bin`` is the
+    shards' bytes in rank order, its objects equal the one process's as a
+    multiset, and every metric (occupancy, baseline, Waymo) is equal."""
+    torch.cuda.empty_cache()
+    data = os.path.join(occ_dir, "data")
+    ckpt = os.path.join(occ_dir, "work", "ckpt")
+    with tempfile.TemporaryDirectory() as out:
+        one = eval_run(dev, data, ckpt, os.path.join(out, "single"))
+        port = free_port()
+        run_ranks([rank_argv("eval_rank", r, 2, port, data, ckpt, out)
+                   for r in (0, 1)], "evaluation gloo x2")
+        ranks = [torch.load(os.path.join(out, f"eval_{r}.pt"),
+                            weights_only=False) for r in (0, 1)]
+        ddp_dir = os.path.join(out, "ddp")
+        shards = [open(os.path.join(ddp_dir, f"results.shard{r}.bin"),
+                       "rb").read() for r in (0, 1)]
+        merged = open(os.path.join(ddp_dir, "results.bin"), "rb").read()
+        objects = [sorted(repr(sorted(o.items())) for o in read_bin(p))
+                   for p in (os.path.join(ddp_dir, "results.bin"),
+                             os.path.join(out, "single", "results.bin"))]
+    if merged != shards[0] + shards[1] or not all(shards):
+        raise AssertionError("sharded evaluation: results.bin is not the "
+                             "shards' bytes in rank order")
+    if objects[0] != objects[1]:
+        raise AssertionError(f"sharded evaluation: {len(objects[0])} objects"
+                             f" against {len(objects[1])}, not the same "
+                             f"multiset")
+    ref = {k: v for k, v in one["metrics"].items() if k != "results_bin"}
+    waymo = [k for k in ref if not k.startswith(("occ", "num_"))]
+
+    def same(a, b):
+        return a == b or (a != a and b != b)       # NaN equals NaN here
+
+    for r, res in enumerate(ranks):
+        got = res["metrics"]
+        differ = [k for k, v in ref.items() if (r == 0 or k not in waymo)
+                  and not (k in got and same(got[k], v))]
+        if differ:
+            raise AssertionError(f"sharded evaluation rank {r}: metrics "
+                                 f"differ {differ}")
+    log(f"sharded evaluation: {ref['num_tracklets']} tracklets, "
+        f"{len(objects[0])} objects equal as a multiset, results.bin = "
+        f"shard0 ({len(shards[0])} B) + shard1 ({len(shards[1])} B); "
+        f"{len(ref)} metrics equal (occ/overall_iou "
+        f"{ref['occ/overall_iou']:.6f}, {len(waymo)} Waymo ones on rank 0); "
+        f"Evaluator.run {one['seconds']:.2f} s in one process, "
+        f"{ranks[0]['seconds']:.2f} / {ranks[1]['seconds']:.2f} s on the "
+        f"ranks; one card: the collectives' overhead, not scaling; card "
+        f"{card_info()}")
+
+
+def phase_surgery(dev, occ_dir, fsd_ckpt):
+    """36. Surgery: publish phase 8's checkpoint twice (the same
+    ``-{hash8}`` name; the optimizer state gone) and hold its predict on
+    the card, restored through ``restore_params``, to the source
+    checkpoint's bit for bit (deterministic kernels); then transplant the
+    FSD checkpoint's ``vfe.`` / ``unet.`` into a one-step CTRL-with-
+    segmentor checkpoint through ``tools/publish_model.py`` and run one
+    CTRL step from the result (``training/trainer.py::train`` resumes at
+    step 0 with a fresh AdamW)."""
+    src = os.path.join(occ_dir, "work", "ckpt")
+    cfg = train_cli.ococc_train_config(dtype="bfloat16")
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [publish_cli.main(["publish", src, "--out",
+                                  os.path.join(tmp, name)])
+                for name in ("release", "again")]
+        if outs[0].split("-")[-1] != outs[1].split("-")[-1]:
+            raise AssertionError(f"publish: hashes differ {outs}")
+        step, params = surgery.restore_params(outs[0])
+        published = torch.load(glob.glob(os.path.join(outs[0], "*.pt"))[0],
+                               weights_only=True)
+        if "optimizer" in published or step != OCC_TRAIN_STEPS:
+            raise AssertionError(f"publish: {sorted(published)}, step "
+                                 f"{step}")
+        batch = synthetic_batch(cfg, batch_size=bench.OCC_BATCH, seed=0).to(
+            dev)
+        preds = []
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for restore in ("source", "published"):
+                model = OcOccNetWithLoss(cfg, dev).eval()
+                if restore == "source":
+                    CheckpointManager(src).restore(model)
+                else:
+                    model.load_state_dict(params)
+                with torch.no_grad():
+                    preds.append(model.predict(batch))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        differ = [k for k, v in preds[0].items()
+                  if not torch.equal(v, preds[1][k])]
+        if differ:
+            raise AssertionError(f"publish: predict differs in {differ}")
+        log(f"surgery publish: {outs[0]} (sha256 "
+            f"{json.load(open(os.path.join(outs[0], 'PUBLISH.json')))['sha256'][:16]}"
+            f"..., the same name twice), step {step}, no optimizer state; "
+            f"predict (bf16, batch {bench.OCC_BATCH}) from restore_params "
+            f"equals the source checkpoint's in all {len(preds[0])} outputs")
+        del model, preds
+        torch.cuda.empty_cache()
+
+        ctrl = seg_config()
+        ds = TrackletDataset(**dataset_paths(os.path.join(occ_dir, "data")),
+                             cfg=ctrl, class_names=ctrl.class_names)
+        ctrl_work = os.path.join(tmp, "ctrl")
+        train_tracklets(ctrl, ds, ctrl_work, total_steps=1, device=dev)
+        warm = os.path.join(tmp, "warm", "ckpt")
+        dst = os.path.join(ctrl_work, "ckpt")
+        _, fsd = surgery.restore_params(fsd_ckpt)
+        counts = {}
+        for part in ("vfe.", "unet."):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                publish_cli.main(["transplant", fsd_ckpt, dst, "--out", warm,
+                                  "--src-prefix", part, "--dst-prefix",
+                                  "net.segmentor." + part])
+            counts[part] = out.getvalue().splitlines()[0]
+            log(f"surgery transplant {part}*: " + out.getvalue().strip()
+                .replace("\n", "; "))
+            dst = warm
+        _, warmed = surgery.restore_params(warm)
+        copied = [n for n in warmed if n.startswith("net.segmentor.")
+                  and n[len("net.segmentor."):] in fsd and torch.equal(
+                      warmed[n], fsd[n[len("net.segmentor."):]])]
+        if not copied:
+            raise AssertionError(f"transplant copied nothing: {counts}")
+        stamps = []
+        done = train_tracklets(
+            ctrl, ds, os.path.dirname(warm), total_steps=1, device=dev,
+            hooks=[lambda s, m: stamps.append(float(m["loss"]))])
+        if done != 1 or len(stamps) != 1 or not abs(stamps[0]) < float(
+                "inf"):
+            raise AssertionError(f"ctrl step from the transplant: {done} "
+                                 f"steps, losses {stamps}")
+        log(f"surgery transplant: {len(copied)} segmentor tensors equal "
+            f"FSD's after the transplant; one CTRL step from it at step 0, "
+            f"loss {stamps[0]:.6f}; card {card_info()}")
+        no_kernel_launches("surgery")
+
+
+def device_trace(fn, calls=5):
+    """Trace ``calls`` calls of ``fn()`` on the card: the kernels and copies
+    it ran per call, their summed device ms per call, and the traced wall
+    ms per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in kernels) / calls,
+            sum(e.self_device_time_total for e in kernels) / 1e3 / calls,
+            wall_ms / calls)
+
+
+BUNDLE_SERVE = """
+import statistics, sys, time, torch
+""" + inspect.getsource(device_trace) + """
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        parts = name.split('.')
+        if parts[0] == 'objectcentricocccompletion_torch' and \\
+                parts[1:2] and parts[1] in ('models', 'ops', 'configs'):
+            raise ImportError('blocked: ' + name)
+sys.meta_path.insert(0, Block())
+from objectcentricocccompletion_torch.serving import load_bundle
+root, reps = sys.argv[1], int(sys.argv[2])
+for layout in sys.argv[3:]:
+    run = load_bundle(f'{root}/{layout}').run
+    batch = [x.cuda() for x in torch.load(f'{root}/batch_{layout}.pt')]
+    got = run(batch)
+    times = []
+    for _ in range(reps + 3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run(batch)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    torch.save({'out': {k: v.cpu() for k, v in got.items()},
+                'ms': statistics.median(times[3:]),
+                'trace': device_trace(lambda: run(batch))},
+               f'{root}/served_{layout}.pt')
+print('served without the model code:', sorted(
+    m for m in sys.modules if m.startswith('objectcentricocccompletion')))
+"""
+
+
+def phase_serving(dev):
+    """37. Serving export: ``save_bundle`` of ``OcOccNetConfig()`` (float32,
+    TF32 off) on the card in the packed and the dense layout, then
+    ``load_bundle`` of both in one fresh process whose imports of the
+    port's ``models``, ``ops`` and ``configs`` raise: served against live
+    predict at the OcOccNet phase's float32 bar (``FP32_OCC_CPU_ATOL``);
+    the export's seconds, the bundle's MB and ms per batch of
+    ``bench.OCC_BATCH`` served against live (both timed on a batch already
+    on the card), and a trace of each: kernels, device busy and wall ms
+    per batch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_info()
+    with tempfile.TemporaryDirectory() as tmp:
+        rows = {}
+        for layout in bench.LAYOUTS:
+            cfg = bench.ococcnet_config("float32", layout)
+            model = bench.build_ococcnet(cfg, dev, seed=0)
+            batch = synthetic_batch(cfg, batch_size=bench.OCC_BATCH, seed=0)
+            t = time.perf_counter()
+            save_bundle(os.path.join(tmp, layout), cfg, model.state_dict(),
+                        batch, device=dev)
+            export_s = time.perf_counter() - t
+            sizes = {os.path.basename(p): os.path.getsize(p) / 1e6
+                     for p in glob.glob(os.path.join(tmp, layout, "*"))}
+            torch.save(tuple(batch), os.path.join(tmp, f"batch_{layout}.pt"))
+            b = batch.to(dev)
+            with torch.no_grad():
+                live = {k: v.cpu() for k, v in model.predict(b).items()}
+                live_ms = median_ms(lambda: model.predict(b),
+                                    reps=SERVE_TIMED)
+                live_trace = device_trace(lambda: model.predict(b))
+            rows[layout] = (export_s, sizes, live, live_ms, live_trace)
+            del model
+            torch.cuda.empty_cache()
+        run_ranks([[sys.executable, "-c", BUNDLE_SERVE, tmp,
+                    str(SERVE_TIMED), *bench.LAYOUTS]], "serving bundles")
+        served = {layout: torch.load(os.path.join(tmp, f"served_{layout}.pt"),
+                                     weights_only=True)
+                  for layout in bench.LAYOUTS}
+    for layout, (export_s, sizes, live, live_ms, live_trace) in rows.items():
+        got = served[layout]
+        err = max(float((got["out"][k].float() - v.float()).abs().max())
+                  for k, v in live.items())
+        if set(got["out"]) != set(live) or not err <= FP32_OCC_CPU_ATOL:
+            raise AssertionError(f"serving {layout}: served vs live {err}")
+        log(f"serving {layout} (float32, batch {bench.OCC_BATCH}): export "
+            f"{export_s:.1f} s, bundle {sum(sizes.values()):.1f} MB ("
+            + ", ".join(f"{k} {v:.1f}" for k, v in sorted(sizes.items()))
+            + f"), served {got['ms']:.3f} ms per batch vs live "
+            f"{live_ms:.3f}, max abs difference {err:.3e} (bar "
+            f"{FP32_OCC_CPU_ATOL}); traced per batch, served vs live: "
+            f"{got['trace'][0]:.0f} vs {live_trace[0]:.0f} kernels and "
+            f"copies, device busy {got['trace'][1]:.3f} vs "
+            f"{live_trace[1]:.3f} ms, wall {got['trace'][2]:.3f} vs "
+            f"{live_trace[2]:.3f} ms; card {card}")
+    no_kernel_launches("serving")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -3504,10 +4157,27 @@ def main():
         t = time.perf_counter()
         nus_fwd, nus_bwd = phase_nuscenes(dev, keep)
         log(f"phase E nuscenes: {time.perf_counter() - t:.1f} s")
+        wa.LAUNCHES.clear()
+        wa.BWD_LAUNCHES.clear()
+        for name, run in (
+                ("36 surgery", lambda: phase_surgery(
+                    dev, occ_dir, os.path.join(fsd_work, "fsd", "ckpt"))),
+                ("37 serving", lambda: phase_serving(dev)),
+                ("38 ococcnet ddp", lambda: phase_ococc_ddp(dev))):
+            t = time.perf_counter()
+            run()
+            log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        ddp_fwd, ddp_bwd = phase_sst_ddp(dev)
+        log(f"phase 39 sst ddp: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_sharded_eval(dev, occ_dir)
+        log(f"phase 40 sharded evaluation: {time.perf_counter() - t:.1f} s")
 
     # launches on the model's paths: bf16 inference and training run the
-    # bf16 kernels, the float32 frame, float32 and augmented training and
-    # the SST evaluation the 3xTF32 ones
+    # bf16 kernels, the float32 frame, float32, augmented, nuScenes and
+    # data-parallel training (both ranks) and the SST evaluation the 3xTF32
+    # ones
     src = "objectcentricocccompletion_torch/csrc/"
     fwd_tpu = "objectcentricocccompletion_tpu/ops/pallas_attention.py:25"
     bwd_tpu = ("benchmarks/repro_attn_bwd.py:124 (_attn_bwd_kernel) and :40 "
@@ -3521,8 +4191,8 @@ def main():
             (torch.float32, "fp32", "window_attention.cu",
              "window_attention_bwd.cu",
              {T: fp32_fwd[T] + fp32_train_fwd[T] + eval_fwd[T] + aug_fwd[T]
-              + nus_fwd[T] for _, T in ATTN_SHAPES},
-             {T: fp32_train_bwd[T] + aug_bwd[T] + nus_bwd[T]
+              + nus_fwd[T] + ddp_fwd[T] for _, T in ATTN_SHAPES},
+             {T: fp32_train_bwd[T] + aug_bwd[T] + nus_bwd[T] + ddp_bwd[T]
               for _, T in ATTN_SHAPES})):
         for W, T in ATTN_SHAPES:
             kernels.append(dict(

@@ -30,18 +30,36 @@ def collate(samples: list[dict]) -> TrackletBatch:
     return TrackletBatch(*(stack(k) for k in TrackletBatch._fields))
 
 
+def shard_slice(batch_size: int, num_shards: int, shard_id: int) -> slice:
+    """Shard ``shard_id``'s contiguous slice of a global batch of
+    ``batch_size`` samples split into ``num_shards`` equal parts."""
+    if batch_size % num_shards or not 0 <= shard_id < num_shards:
+        raise ValueError(f"a global batch of {batch_size} does not split "
+                         f"into {num_shards} shards (shard {shard_id})")
+    per = batch_size // num_shards
+    return slice(shard_id * per, (shard_id + 1) * per)
+
+
 class TrainLoader:
     """Endless shuffled batches of a ``TrackletDataset``: a new permutation
     of the dataset (from ``numpy.random.RandomState(seed)``) whenever the
     last one runs out, taken from its end; the same state feeds the
     samples' own randomness. The JAX package's loader on one host, draw for
-    draw (its ``num_shards`` / ``shard_id`` serve the multi-host launch,
-    which is not ported)."""
+    draw.
+
+    Data parallelism: ``batch_size`` is the global batch, and shard
+    ``shard_id`` of ``num_shards`` keeps its contiguous slice of it, so the
+    ranks together train on the one-process run's batches. The state feeds
+    every sample's randomness, so each shard builds the whole global batch
+    (``num_shards`` times the host work of its own slice). The JAX
+    package's ``num_shards`` / ``shard_id`` take an interleaved slice of
+    each permutation instead, which changes the batches with the count."""
 
     def __init__(self, dataset: TrackletDataset, batch_size: int,
-                 seed: int = 0):
+                 seed: int = 0, num_shards: int = 1, shard_id: int = 0):
         self.ds = dataset
         self.batch_size = batch_size
+        self.keep = shard_slice(batch_size, num_shards, shard_id)
         self.rng = np.random.RandomState(seed)
         self._order = []
 
@@ -55,7 +73,7 @@ class TrainLoader:
                 self._order = list(self.rng.permutation(len(self.ds)))
             idx = self._order.pop()
             samples.append(self.ds.build_sample(idx, self.rng))
-        return collate(samples)
+        return collate(samples[self.keep])
 
 
 def _worker_loop(ctor_kwargs: dict, augment: bool, tasks, results,
@@ -89,7 +107,10 @@ class PrefetchLoader:
     then draws its own seed (``randint(0, 2**31 - 1)``) from the same state
     in schedule order and is built from a fresh ``RandomState`` of it, so
     the batches are the same for any worker count (the JAX package's
-    ``PrefetchLoader``, draw for draw).
+    ``PrefetchLoader``, draw for draw). With ``num_shards`` above 1 it
+    schedules the global batch of ``batch_size`` and builds only shard
+    ``shard_id``'s contiguous slice of it (``TrainLoader``'s slice, at no
+    extra host work: the seeds come from the schedule).
 
     Each worker is a plain process with a task pipe and a result pipe of
     its own, whose other ends only the loader holds: no pool, no helper
@@ -103,11 +124,13 @@ class PrefetchLoader:
 
     def __init__(self, dataset: TrackletDataset, batch_size: int,
                  seed: int = 0, workers: int = 8, prefetch: int = 4,
-                 timeout: float = 120.0):
+                 timeout: float = 120.0, num_shards: int = 1,
+                 shard_id: int = 0):
         import multiprocessing as mp
         ctx = mp.get_context("spawn")
         self.ds = dataset
         self.batch_size = batch_size
+        self.keep = shard_slice(batch_size, num_shards, shard_id)
         self.rng = np.random.RandomState(seed)
         self.timeout = timeout
         self._order: list = []
@@ -152,7 +175,7 @@ class PrefetchLoader:
 
     def _submit_batch(self) -> None:
         keys = []
-        for idx, seed in self.schedule():
+        for idx, seed in self.schedule()[self.keep]:
             proc, tasks, _ = self._workers[self._key % len(self._workers)]
             try:
                 tasks.send((self._key, idx, seed))
@@ -215,14 +238,18 @@ class PrefetchLoader:
 
 def make_loader(dataset: TrackletDataset, batch_size: int, seed: int = 0,
                 workers: int = 0, prefetch: int = 4,
-                timeout: float = 120.0):
+                timeout: float = 120.0, num_shards: int = 1,
+                shard_id: int = 0):
     """``workers`` 0: the serial ``TrainLoader``; above 0: a
     ``PrefetchLoader`` of that many processes, each of its waits bounded
-    by ``timeout`` seconds."""
+    by ``timeout`` seconds. ``num_shards`` / ``shard_id``: the shard's
+    slice of each global batch of ``batch_size``."""
     if workers <= 0:
-        return TrainLoader(dataset, batch_size, seed=seed)
+        return TrainLoader(dataset, batch_size, seed=seed,
+                           num_shards=num_shards, shard_id=shard_id)
     return PrefetchLoader(dataset, batch_size, seed=seed, workers=workers,
-                          prefetch=prefetch, timeout=timeout)
+                          prefetch=prefetch, timeout=timeout,
+                          num_shards=num_shards, shard_id=shard_id)
 
 
 def write_synthetic_dataset(root: str, num_tracklets: int = 4,

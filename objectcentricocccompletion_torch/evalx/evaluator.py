@@ -8,8 +8,19 @@ Tracklets have variable length at test (up to about 200 frames). Each is
 padded to a length bucket: torch needs no static shapes, but the bucket
 sets the packed layout's point budget (``models/ococcnet.py``), so it
 decides which points the model keeps, and it groups the tracklets into
-batches. Single process; the round-robin sharding of the JAX package's
-multi-host run waits for DDP.
+batches.
+
+Under a process group (``parallel/multihost.py``) the tracklets go
+round-robin by rank, as in the JAX package's multi-host run: each rank
+writes ``results.shard{rank}.bin``, and after a barrier rank 0
+byte-concatenates the shards (a valid merge of the proto stream) into
+``results.bin`` and alone runs the Waymo metrics. Every rank still builds
+every sample, so that the one ``RandomState`` of the evaluation draws the
+one-process run's samples. The occupancy accumulators are reduced across
+the ranks: each rank's per-tracklet terms are gathered and added in
+tracklet order, so the metrics of any rank count equal one process's. (The
+JAX package rebuilds its metrics from the rank's own accumulator and
+reduces only ``occ/overall_iou``, dropping ``occ_baseline``.)
 """
 from __future__ import annotations
 
@@ -24,6 +35,8 @@ from ..data.tracklet import TrackletBatch
 from ..data.tracklet_dataset import TrackletDataset, pose_transform_boxes
 from ..models.ococcnet import OcOccNetWithLoss
 from ..ops import roi_pool as rp
+from ..parallel.multihost import process_allgather, rank, sync_hosts, \
+    world_size
 from ..utils.device import resolve_device
 from . import occ_iou as occ_iou_mod
 from . import online_tuning as ot
@@ -35,6 +48,28 @@ LENGTH_BUCKETS = (32, 64, 128, 256)
 MAX_OCC_QUERIES = 16384
 # frames per occupancy decode in save_occ
 SAVE_OCC_CHUNK = 16
+
+
+class _Terms:
+    """An accumulator's stand-in: records each ``add_tracklet`` call's
+    arguments under the tracklet's index, to be gathered across the ranks
+    and added in index order."""
+
+    def __init__(self):
+        self.index = None
+        self.rows = []
+
+    def add_tracklet(self, *args):
+        self.rows.append((self.index, args))
+
+
+def _reduce(terms: list, acc) -> None:
+    """Every rank's recorded terms (``_Terms.rows``), in tracklet order,
+    into ``acc``."""
+    rows = [r for part in (process_allgather(terms) if world_size() > 1
+                           else [terms]) for r in part]
+    for _, args in sorted(rows, key=lambda r: r[0]):
+        acc.add_tracklet(*args)
 
 
 def pad_to_bucket(sample: dict, cfg: OcOccNetConfig) -> tuple[dict, int]:
@@ -132,20 +167,26 @@ class Evaluator:
         ``batch_size > 1`` groups tracklets of one length bucket into one
         call (the last group of a bucket is filled up with its last
         tracklet). ``eval_occ_baseline`` also scores the point-aggregation
-        baseline through the same accumulator, beside the model's."""
+        baseline through the same accumulator, beside the model's. Under a
+        process group each rank evaluates every ``world``-th tracklet from
+        its rank on (module docstring); every rank returns the occupancy
+        metrics, rank 0 alone the Waymo ones."""
         os.makedirs(out_dir, exist_ok=True)
         rng = np.random.RandomState(0)
-        acc = occ_iou_mod.OccIoUAccumulator()
-        acc_base = (occ_iou_mod.OccIoUAccumulator() if eval_occ_baseline
-                    else None)
+        world, me = world_size(), rank()
+        terms = _Terms()
+        terms_base = _Terms() if eval_occ_baseline else None
         out_tracklets = []
         n = len(self.ds) if max_tracklets is None else min(
             max_tracklets, len(self.ds))
 
-        # every sample from one RandomState, in index order
+        # every sample from one RandomState, in index order; this rank's
+        # tracklets round-robin
         prepared = []
         for i in range(n):
             sample = self.ds.build_sample(i, rng)
+            if i % world != me:
+                continue
             padded, T = pad_to_bucket(sample, self.cfg)
             prepared.append((i, sample, padded, T))
         by_bucket: dict = {}
@@ -189,22 +230,39 @@ class Evaluator:
                 waymo_type=rec.type, boxes=ego_boxes, scores=scores, ts=ts))
 
             if eval_occ:
-                self._eval_occ_one(i, rec, padded, pred, T, acc,
-                                   acc_base=acc_base)
+                terms.index = i
+                if terms_base is not None:
+                    terms_base.index = i
+                self._eval_occ_one(i, rec, padded, pred, T, terms,
+                                   acc_base=terms_base)
             if save_occ_root is not None:
                 self.save_occ(save_occ_root, rec,
                               dict(sample, rois=padded["rois"]), pred, T)
 
         bin_path = os.path.join(out_dir, "results.bin")
         write_bin(tracklets_to_objects(out_tracklets, self.ds.class_names),
-                  bin_path)
+                  bin_path if world == 1
+                  else os.path.join(out_dir, f"results.shard{me}.bin"))
+        if world > 1:
+            sync_hosts("eval_shards")
+            if me == 0:
+                with open(bin_path, "wb") as out:
+                    for r in range(world):
+                        with open(os.path.join(
+                                out_dir, f"results.shard{r}.bin"), "rb") as f:
+                            out.write(f.read())
+            sync_hosts("eval_merge")
+        acc = occ_iou_mod.OccIoUAccumulator()
+        _reduce(terms.rows, acc)
         metrics = acc.summary() if eval_occ else {}
-        if acc_base is not None:
+        if terms_base is not None:
+            acc_base = occ_iou_mod.OccIoUAccumulator()
+            _reduce(terms_base.rows, acc_base)
             metrics.update(acc_base.summary(prefix="occ_baseline"))
         metrics["num_tracklets"] = n
         metrics["results_bin"] = bin_path
 
-        if eval_waymo:
+        if eval_waymo and me == 0:
             gt_path = gt_bin or os.path.join(out_dir, "gt.bin")
             if gt_bin is None:
                 self.write_gt_bin(gt_path, max_tracklets=n)

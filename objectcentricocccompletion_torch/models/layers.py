@@ -143,8 +143,9 @@ def hash_bits(key: torch.Tensor, shape: Sequence[int],
     values in [0, 2^32) of ``shape``, on ``key``'s device."""
     n = math.prod(shape)
     k0, k1 = key[0], key[-1]
+    # the uint32 counter wraps as JAX's iota does
     h = torch.arange(offset, offset + n, dtype=torch.int64,
-                     device=key.device)
+                     device=key.device) & _U32
     h = (_mul_u32(h, 2654435761) + k0) & _U32
     h = h ^ (h >> 16)
     h = _mul_u32(h, 0x85EBCA6B)
@@ -164,13 +165,23 @@ class DropoutKeys:
     step passes ``base`` = [seed, step] as a device tensor. ``DropoutKeys(
     words=[...])`` hands out the given words instead (the tests pass the
     JAX package's, which flax derives from the module path; the port does
-    not rebuild that stream)."""
+    not rebuild that stream).
+
+    ``rank``: this process's slice of a data-parallel global batch. Every
+    dropout site's leading axis is the batch (the heads' and the fusion
+    MLPs' [B, L, C], the attention weights' [B, H, L, L], the decoder's
+    [B, L, K, C], the SIR encoders' [B * L, P, C] dense and [B, N, C]
+    packed), so the counter of a rank's mask starts at ``rank`` times its
+    element count: the masks of each slice are those of one draw over the
+    global batch, as the JAX step draws them over its global shape."""
 
     def __init__(self, base: torch.Tensor | None = None,
-                 words: Sequence[torch.Tensor] | None = None):
+                 words: Sequence[torch.Tensor] | None = None,
+                 rank: int = 0):
         if (base is None) == (words is None):
             raise ValueError("give exactly one of base and words")
         self.base, self.words = base, words
+        self.rank = rank
         self.site = 0
 
     def __call__(self) -> torch.Tensor:
@@ -191,7 +202,7 @@ def dropout(x: torch.Tensor, rate: float, keys: DropoutKeys | None
     if keys is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    bits = hash_bits(keys(), x.shape)
+    bits = hash_bits(keys(), x.shape, keys.rank * x.numel())
     thresh = min(int(round(keep * 4294967296.0)), _U32)
     # a host number, exact in x's dtype: no copy to the device
     scale = float(torch.tensor(1.0 / keep, dtype=torch.float32).to(x.dtype))

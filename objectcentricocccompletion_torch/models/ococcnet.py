@@ -45,6 +45,7 @@ from ..core import coder
 from ..data.tracklet import TrackletBatch
 from ..ops import packed as pk
 from ..ops import roi_pool as rp
+from ..parallel.multihost import global_sum, world_size
 from ..utils.device import resolve_device
 from .layers import (DropoutKeys, Mlp, he_normal_, init_flax_like_,
                      sinusoidal_position_encoding)
@@ -382,7 +383,15 @@ class OcOccNetWithLoss(nn.Module):
         - ``loss_rcnn_occ`` (``ococc`` only): BCE of the occupancy logits
           of the GT samples in each RoI's frame, weighted by positive x
           (annotation score > threshold) x sample mask, divided by
-          ``max(num_pos * K, 1)``; then the metrics."""
+          ``max(num_pos * K, 1)``; then the metrics.
+
+        Under data parallelism (a process group of W ranks, each on its
+        slice of the global batch) ``num_pos`` and ``num_pos * K`` are the
+        global batch's (``global_sum``) and the positive-count terms are
+        scaled by W, so that DDP's average of the ranks' gradients is that
+        of ``sum / max(global count, 1)``, the global batch's loss; the
+        metrics are the global batch's too. The ranks' mean of each loss
+        entry is the global batch's."""
         cfg = self.cfg
         out = self.net(batch, train=train, keys=keys)
         B, L = out["cls_logit"].shape
@@ -396,8 +405,9 @@ class OcOccNetWithLoss(nn.Module):
         loss_cls = cfg.loss_cls_weight * (bce * cls_w).sum() / float(B * L)
 
         posf = (batch.gt_valid & out["nonempty"]).float()
-        num_pos = posf.sum()
-        pos_den = num_pos.clamp(min=1.0)
+        num_pos = global_sum(posf.sum())
+        # DDP averages the ranks' gradients: W x the rank's share
+        pos_den = num_pos.clamp(min=1.0) / world_size()
         targets = coder.encode_roi_targets(batch.rois, batch.gt_boxes)
         l1 = (out["bbox_pred"] - targets).abs() * self.code_weights
         loss_bbox = (cfg.loss_bbox_weight * (l1 * posf[..., None]).sum()
@@ -438,7 +448,7 @@ class OcOccNetWithLoss(nn.Module):
         K = occ_logits.shape[-1]
         occ_bce = _bce_with_logits(occ_logits, occ_lab)
         loss_occ = (cfg.loss_occ_weight * (occ_bce * occ_w).sum()
-                    / (num_pos * K).clamp(min=1.0))
+                    / ((num_pos * K).clamp(min=1.0) / world_size()))
         total = loss_cls + loss_bbox + loss_occ + loss_corner
         losses = dict(loss_rcnn_cls=loss_cls, loss_rcnn_bbox=loss_bbox,
                       loss_rcnn_occ=loss_occ, loss=total)
@@ -467,7 +477,10 @@ def _bce_with_logits(logits: torch.Tensor, targets: torch.Tensor
 
 def _safe_mean(num_mask: torch.Tensor, den_mask: torch.Tensor
                ) -> torch.Tensor:
-    return num_mask.float().sum() / den_mask.float().sum().clamp(min=1.0)
+    """The global batch's share: both counts summed over the ranks."""
+    counts = global_sum(torch.stack([num_mask.float().sum(),
+                                     den_mask.float().sum()]))
+    return counts[0] / counts[1].clamp(min=1.0)
 
 
 def _metrics(out, soft, cls_w, occ_logits, occ_lab, occ_w, num_pos) -> dict:

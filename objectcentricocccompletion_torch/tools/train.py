@@ -5,7 +5,9 @@
         --proposals data/proposals.pkl --gt-candidates data/cands.pkl \\
         --poses data/poses.pkl --occ-root data/occ_gt --total-steps 1000 \\
         [--ctrl-class veh] [--fixed-ae] [--dtype bfloat16] \\
-        [--loader-workers N] [--tiny] [--device cuda] [--work-dir DIR]
+        [--loader-workers N] [--tiny] [--device cuda] [--work-dir DIR] \\
+        [--coordinator HOST:PORT --num-processes N --process-id R \\
+         [--dist-backend nccl|gloo]]
     python -m objectcentricocccompletion_torch.tools.train sst \\
         --infos data/infos.pkl --data-root data --total-steps 1000 \\
         [--dtype bfloat16] [--augment] [--gt-sample N] [--num-sweeps N] \\
@@ -70,10 +72,23 @@ a ``torch.Generator`` seeded with ``--seed``; everything runs on
 ``--device`` (``cuda`` unless the caller asks for the CPU). ``--dtype``
 sets the compute dtype; parameters stay float32.
 
+The multi-process launch (``--coordinator host:port --num-processes N
+--process-id R``, one process per card, started by the user on each
+rank) trains every family but ``fsdpp`` data-parallel: the global batch is
+N times the per-process batch, each rank trains on its slice through
+``DistributedDataParallel`` (``parallel/multihost.py``,
+``parallel/train.py``, ``training/detector_trainer.py``), and rank 0
+writes the checkpoints and ``metrics.jsonl``. Rank R runs on
+``cuda:{R % device_count}`` (``--device cpu``: the CPU); the backend is
+``nccl`` on the card and ``gloo`` on the CPU, and ``--dist-backend gloo``
+serves several ranks on one card. ``fsdpp`` trains on one device, as in
+the JAX package.
+
 The flags of the JAX CLI are kept. Those of options not ported yet
-(``--tp``, ``--fsdp``, ``--sequence-parallel``, the multi-host launch)
-raise ``NotImplementedError``, and so does ``--loader-workers`` of a
-detector family, which the JAX CLI accepts and ignores.
+(``--tp``, ``--fsdp``, ``--sequence-parallel``) raise
+``NotImplementedError``, and so do ``--loader-workers`` of a detector
+family, which the JAX CLI accepts and ignores, and a multi-process
+``fsdpp``.
 """
 from __future__ import annotations
 
@@ -101,10 +116,10 @@ from ..models.fsdpp import FSDPP, FSDPPConfig, tiny_fsdpp_config
 from ..models.sst_detector import (SSTDetector, SSTDetectorConfig,
                                    tiny_sst_detector_config)
 from ..models.votenet import VoteNet, VoteNetConfig, tiny_votenet_config
+from ..parallel import multihost
 from ..training.detector_trainer import train_detector
 from ..training.seq_trainer import train_fsdpp
 from ..training.trainer import train
-from ..utils.device import resolve_device
 
 FAMILIES = ["ococcnet", "ctrl", "centerpoint", "sst", "fsd", "fsd2",
             "fsdpp", "votenet"]
@@ -171,10 +186,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "0: in-process build with a prefetch thread")
     p.add_argument("--sequence-parallel", action="store_true",
                    help="sharded point / query axes (not ported)")
+    # the multi-process launch: one process per card, each started with
+    # its own --process-id
     p.add_argument("--coordinator", default=None,
-                   help="multi-host coordinator (not ported)")
+                   help="host:port of rank 0 for a multi-process run")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   help="collective backend (default: nccl on the card, "
+                        "gloo on the CPU; gloo serves several ranks on one "
+                        "card)")
     return p.parse_args(argv)
 
 
@@ -204,9 +225,9 @@ def _refuse_unported(args: argparse.Namespace) -> None:
                 "--loader-workers of a detector family":
                     args.loader_workers > 0
                     and args.model not in ("ococcnet", "ctrl"),
-                "the multi-host launch (--coordinator, --num-processes)":
-                    args.coordinator is not None
-                    or (args.num_processes or 1) > 1}
+                "--num-processes of fsdpp (one device, as in the JAX "
+                "package)": args.model == "fsdpp"
+                    and (args.num_processes or 1) > 1}
     for flag, used in unported.items():
         if used:
             raise NotImplementedError(f"{flag} is not ported yet")
@@ -343,13 +364,27 @@ def attach_gt_sampler(ds: FrameDataset, gt_sample: int,
 def main(argv=None,
          hooks: Sequence[Callable[[int, dict], None]] = ()) -> int:
     """Run the CLI on ``argv``; ``hooks`` go to the training loop (for a
-    caller that drives training from Python). Returns the steps done."""
+    caller that drives training from Python). Returns the steps done. A
+    process group that this call joined is left at the end; one that the
+    caller set up stays up."""
     args = parse_args(argv)
     _refuse_unported(args)
+    dev = multihost.initialize(args.coordinator, args.num_processes,
+                               args.process_id, args.dist_backend,
+                               args.device)
+    joined = (args.num_processes or 1) > 1
+    try:
+        return _train(args, dev, hooks)
+    finally:
+        if joined:
+            multihost.shutdown()
+
+
+def _train(args: argparse.Namespace, dev: torch.device,
+           hooks: Sequence[Callable[[int, dict], None]]) -> int:
     if args.model in ("ococcnet", "ctrl"):
         cfg = ococc_train_config(args.model, args.tiny, args.ctrl_class,
                                  args.fixed_ae, args.dtype)
-        dev = resolve_device(args.device)
         ds = TrackletDataset(
             proposals_file=args.proposals,
             gt_candidates_file=args.gt_candidates, pose_file=args.poses,
@@ -366,7 +401,6 @@ def main(argv=None,
             f"{args.model} training needs --infos and --data-root")
     if args.model == "fsdpp" and args.dataset != "waymo":
         raise SystemExit("fsdpp trains on the segments of Waymo frames")
-    dev = resolve_device(args.device)
     ds = frame_dataset(args.dataset, args.infos, args.data_root, args.tiny,
                        occ_pred_root=args.occ_pred_root,
                        augment=args.augment, num_sweeps=args.num_sweeps)

@@ -4,6 +4,7 @@ every training loop (counterpart of the JAX package's
 ``MetricLogger``)."""
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -13,6 +14,7 @@ from typing import Callable, Sequence
 import torch
 
 from ..data.loader import ThreadPrefetcher, make_loader
+from ..parallel.multihost import rank, sync_hosts, world_size
 from ..parallel.train import create_train_state, make_train_step
 from ..utils.device import resolve_device
 
@@ -20,7 +22,8 @@ from ..utils.device import resolve_device
 class CheckpointManager:
     """``ckpt_dir/step_<N>.pt`` files holding the step, the model's
     ``state_dict`` and the optimizer's state; the newest ``max_keep`` are
-    kept."""
+    kept. A published or transplanted checkpoint (``training/surgery.py``)
+    holds no optimizer state."""
 
     _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -51,15 +54,17 @@ class CheckpointManager:
                 optimizer: torch.optim.Optimizer | None = None
                 ) -> int | None:
         """Load the newest checkpoint into ``model`` and, where one is
-        given, ``optimizer`` (evaluation passes none); returns its step, or
-        None where there is none."""
+        given and the checkpoint holds its state, ``optimizer``
+        (evaluation passes none; a checkpoint without optimizer state, as
+        ``publish_model transplant`` writes, leaves the fresh AdamW as it
+        is); returns its step, or None where there is none."""
         steps = self.steps()
         if not steps:
             return None
         state = torch.load(self.path(steps[-1]), map_location="cpu",
                            weights_only=True)
         model.load_state_dict(state["model"])
-        if optimizer is not None:
+        if optimizer is not None and "optimizer" in state:
             optimizer.load_state_dict(state["optimizer"])
         return int(state["step"])
 
@@ -104,24 +109,36 @@ def train(cfg, dataset, work_dir: str, total_steps: int | None = None,
           hooks: Sequence[Callable[[int, dict], None]] = (),
           loader_workers: int = 0) -> int:
     """Train OcOccNet (``cfg``) on ``dataset`` (a ``TrackletDataset``) on
-    one device (``cuda`` unless the caller asks for the CPU), from weights
-    drawn with ``seed``: ``cfg.batch_size`` tracklets per step,
-    ``total_steps`` steps (default ``cfg.max_epochs`` epochs). Metrics go
-    to ``work_dir/metrics.jsonl`` every ``log_interval`` steps with ``lr``
-    (the step's) and ``tracklets_per_sec``; a checkpoint to
-    ``work_dir/ckpt`` every ``ckpt_interval`` steps and at the end; with
-    ``resume`` the newest checkpoint there is loaded first. A thread builds
-    the next batches while the device runs; with ``loader_workers`` above
-    0 it collects them from that many sample-building processes
-    (``PrefetchLoader``), whose batches are the same for any count.
-    Each hook is called as ``hook(step, metrics)`` after every step
-    (``step`` counts the steps done). Returns the number of steps done."""
+    ``device`` (``cuda`` unless the caller asks for the CPU), from weights
+    drawn with ``seed``: ``cfg.batch_size`` tracklets per step and
+    process, ``total_steps`` steps (default ``cfg.max_epochs`` epochs of
+    the global batch). Metrics go to ``work_dir/metrics.jsonl`` every
+    ``log_interval`` steps with ``lr`` (the step's) and
+    ``tracklets_per_sec``; a checkpoint to ``work_dir/ckpt`` every
+    ``ckpt_interval`` steps and at the end; with ``resume`` the newest
+    checkpoint there is loaded first. A thread builds the next batches
+    while the device runs; with ``loader_workers`` above 0 it collects them
+    from that many sample-building processes (``PrefetchLoader``), whose
+    batches are the same for any count. Each hook is called as
+    ``hook(step, metrics)`` after every step (``step`` counts the steps
+    done). Returns the number of steps done.
+
+    Under a process group (``parallel/multihost.py::initialize``) the
+    global batch is ``cfg.batch_size`` times the world size, as in the JAX
+    trainer: every rank draws it from the loader's seed and keeps its
+    contiguous slice, and the step is data-parallel
+    (``parallel/train.py``), so the run equals one process at the global
+    batch. Rank 0 writes the checkpoints and the log, between barriers;
+    every rank resumes from the same file and runs its hooks."""
     dev = resolve_device(device)
-    batch_size = cfg.batch_size
+    world, me = world_size(), rank()
+    batch_size = cfg.batch_size * world
     if total_steps is None:
         total_steps = max(len(dataset) // batch_size, 1) * cfg.max_epochs
     loader = ThreadPrefetcher(make_loader(dataset, batch_size, seed=seed,
-                                          workers=loader_workers), depth=2)
+                                          workers=loader_workers,
+                                          num_shards=world, shard_id=me),
+                              depth=2)
     try:
         model, optimizer, schedule = create_train_state(cfg, total_steps,
                                                         dev, seed)
@@ -133,7 +150,10 @@ def train(cfg, dataset, work_dir: str, total_steps: int | None = None,
                 start = restored
         step_fn = make_train_step(model, optimizer, schedule, seed=seed + 1)
         t_last = time.time()
-        with MetricLogger(work_dir, log_interval) as logger:
+        with contextlib.ExitStack() as stack:
+            logger = (stack.enter_context(MetricLogger(work_dir,
+                                                       log_interval))
+                      if me == 0 else None)
             for step in range(start, total_steps):
                 metrics = step_fn(step, next(loader))
                 for hook in hooks:
@@ -142,11 +162,16 @@ def train(cfg, dataset, work_dir: str, total_steps: int | None = None,
                     metrics = {k: float(v) for k, v in metrics.items()}
                     dt = (time.time() - t_last) / log_interval
                     t_last = time.time()
-                    logger.log(step + 1, {
-                        **metrics, "lr": schedule(step),
-                        "tracklets_per_sec": batch_size / max(dt, 1e-9)})
+                    if logger is not None:
+                        logger.log(step + 1, {
+                            **metrics, "lr": schedule(step),
+                            "tracklets_per_sec": batch_size / max(dt,
+                                                                  1e-9)})
                 if (step + 1) % ckpt_interval == 0 or step + 1 == total_steps:
-                    ckpt.save(step + 1, model, optimizer)
+                    sync_hosts("ckpt_save")
+                    if me == 0:
+                        ckpt.save(step + 1, model, optimizer)
+                    sync_hosts("ckpt_saved")
     finally:
         loader.close()
     return max(start, total_steps)

@@ -37,7 +37,8 @@ def test_port_sources_exist():
             "extend_tracks.py", "create_data.py", "dbsampler.py",
             "hooks.py", "tracklet_segmentor.py", "votenet.py", "pointnet.py",
             "nuscenes_dataset.py", "indoor_dataset.py",
-            "argo2_dataset.py"} <= names
+            "argo2_dataset.py", "surgery.py", "publish_model.py",
+            "export.py", "multihost.py"} <= names
     for sub in ("tools_occ", "tools_ctrl"):
         assert (ROOT / "objectcentricocccompletion_torch" / sub /
                 "__init__.py").exists()
@@ -95,3 +96,6 @@ def test_port_modules_import_without_the_jax_package():
     assert "objectcentricocccompletion_torch.models.centerpoint" in modules
     assert "objectcentricocccompletion_torch.data.argo2_dataset" in modules
     assert "objectcentricocccompletion_torch.models.votenet" in modules
+    for name in ("training.surgery", "tools.publish_model",
+                 "serving.export", "parallel.multihost"):
+        assert f"objectcentricocccompletion_torch.{name}" in modules

@@ -242,12 +242,16 @@ def test_cli_variants_train(data, tmp_path, model, extra, kw):
                                    ["--num-processes", "2"]])
 def test_cli_refuses_what_is_not_ported(data, tmp_path, extra):
     """A family first: a flag refused for that family only
-    (``--loader-workers`` drives the tracklet families' worker pool)."""
+    (``--loader-workers`` drives the tracklet families' worker pool). The
+    multi-process launch is ported: half of it (``--coordinator`` or
+    ``--num-processes`` alone) is refused by name, as a usage error."""
     paths, _ = data
     argv = _cli_argv(paths, str(tmp_path))
     if extra[0] in tcli.FAMILIES:
         argv[0], extra = extra[0], extra[1:]
-    with pytest.raises(NotImplementedError, match=re.escape(extra[0])):
+    error = (ValueError if extra[0] in ("--coordinator", "--num-processes")
+             else NotImplementedError)
+    with pytest.raises(error, match=re.escape(extra[0])):
         tcli.main(argv + extra)
 
 

@@ -174,7 +174,7 @@ def test_cli_trains_logs_checkpoints_and_resumes(frames, tmp_path):
                                    ["sst", "--tp", "2"],
                                    ["sst", "--dataset", "nuscenes",
                                     "--sequence-parallel"],
-                                   ["sst", "--dataset", "argo2",
+                                   ["fsdpp", "--dataset", "argo2",
                                     "--num-processes", "2"],
                                    ["sst", "--loader-workers", "2"]])
 def test_cli_refuses_what_is_not_ported(frames, extra):
