@@ -285,7 +285,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
     Each run of 37-40 is a process group of its own, killed at
     ``RANK_WAIT`` s; one card's ranks measure the collectives' overhead,
     not scaling.
-41. Print the kernels' JSON line (the bf16 and the float32 tensor-core
+41. Tensor parallelism of OcOccNet's float32 step (phase 38's config,
+    dropout and batch): (a) an NCCL group of one rank on a (1, 1) mesh,
+    (b) two gloo ranks on ``cuda:0`` on a (1, 2) mesh, the 24 wide Dense
+    kernels column-parallel; against phase 38's plain step at its bars,
+    the ranks' whole parameters bit-equal; per rank ms per step, peak and
+    the parameter, gradient and AdamW moment bytes.
+42. FSDP, two gloo ranks on a (2, 1) mesh, half the batch each: the same
+    bars and numbers, and the step's all-gather, reduce-scatter and
+    all-reduce timed alone.
+43. TP with sequence parallelism on a (1, 2) mesh (in 41 (b)'s
+    processes): the same bars; the peak per rank against phase 38's.
+44. ``tools/train.py ococcnet --tp 2 --fsdp --sequence-parallel`` in four
+    gloo processes (mesh (2, 2)) and ``ctrl --tp 2`` in two, 3 steps on
+    phase 8's tracklets, each against ``train`` in this process at the
+    global batch: the logged losses and ``grad_norm``, the final
+    checkpoint, restored in one process under its file's ``tree_hash``.
+    Each run of 41-44 is a process group of its own, killed at
+    ``RANK_WAIT`` s, and counts 0 window-attention launches on every
+    rank.
+45. Print the kernels' JSON line (the bf16 and the float32 tensor-core
     kernels, each level apart; launches of the bf16 frames and bf16
     training, and of the float32 frame, float32, augmented, nuScenes and
     data-parallel training (both ranks) and the SST evaluations), then as
@@ -345,8 +364,9 @@ from objectcentricocccompletion_torch.ops import _build
 from objectcentricocccompletion_torch.ops.routes import Routes
 from objectcentricocccompletion_torch.ops import seeds as seed_ops
 from objectcentricocccompletion_torch.ops import voxelize as vx
+from objectcentricocccompletion_torch.parallel import collectives as cc
 from objectcentricocccompletion_torch.parallel.train import (
-    create_train_state, make_train_step)
+    create_train_state, make_mesh_2d, make_train_step, shard_batch)
 from objectcentricocccompletion_torch.ops import window_attention as wa
 from objectcentricocccompletion_torch.tools import benchmark as bench
 from objectcentricocccompletion_torch.tools import (
@@ -3488,17 +3508,27 @@ def occ_ddp_config():
                                base_lr=OCC_STEP_LR)
 
 
-def ococc_ddp_run(dev, batch, plain=False):
+def ococc_ddp_run(dev, batch, plain=False, mesh=None, **layout_kw):
     """``DDP_STEPS`` float32 steps of phase 38's config from the seeded init
-    on ``batch`` (under the process group that is up, if any): the first
-    step's metrics and parameters (``plain``: and clipped gradients), every
-    step's ms and the peak memory."""
+    on ``batch`` (under the process group that is up, if any; ``mesh`` and
+    ``layout_kw``: ``make_train_step``'s model-parallel layout): the first
+    step's metrics and parameters gathered whole (``plain``: and clipped
+    gradients), this rank's parameter, gradient and AdamW moment bytes
+    after it, every step's ms and the peak memory."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.reset_peak_memory_stats(dev)
     model, optimizer, schedule = create_train_state(occ_ddp_config(), 100,
                                                     dev, 0)
-    step_fn = make_train_step(model, optimizer, schedule)
+    step_fn = make_train_step(model, optimizer, schedule, mesh=mesh,
+                              **layout_kw)
+    layout = step_fn.layout
+
+    def whole(name, t):
+        d = layout.dims.get(name)
+        t = t if d is None else cc.all_gather_cat(t, d, layout.group)
+        return t.detach().cpu().clone()
+
     times = []
     for k in range(DDP_STEPS):
         torch.cuda.synchronize()
@@ -3507,16 +3537,57 @@ def ococc_ddp_run(dev, batch, plain=False):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
         if k == 0:
+            named = dict(model.named_parameters())
             res = dict(metrics={n: float(v) for n, v in metrics.items()},
-                       params={n: p.detach().cpu().clone()
-                               for n, p in model.named_parameters()},
-                       lr=schedule(0))
+                       params={n: whole(n, p) for n, p in named.items()},
+                       lr=schedule(0), bytes=dict(
+                           params=sum(p.numel() * 4 for p in named.values()),
+                           grads=sum(p.grad.numel() * 4
+                                     for p in named.values()),
+                           moments=sum(v.numel() * 4
+                                       for st in optimizer.state.values()
+                                       for k2, v in st.items()
+                                       if k2.startswith("exp_avg"))),
+                       sharded=len(layout.dims), summed=len(layout.summed))
             if plain:
                 res["grads"] = {n: p.grad.cpu()
                                 for n, p in model.named_parameters()}
     res.update(ms=times,
                peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    if layout.fsdp:
+        res["collectives"] = fsdp_collective_ms(model, layout)
     return res
+
+
+def fsdp_collective_ms(model, layout, reps=3):
+    """The FSDP step's collectives alone, median CUDA-synchronised ms of
+    ``reps``: the one all-gather of the shards laid end to end, the one
+    reduce-scatter of the whole gradients, the one all-reduce of the
+    replicated gradients; with each one's MB per rank."""
+    named = dict(model.named_parameters())
+    flat = torch.cat([named[n].detach().reshape(-1) for n in layout.dims])
+    rest = torch.cat([p.detach().reshape(-1) for n, p in named.items()
+                      if n not in layout.dims])
+    whole = flat.new_zeros(layout.size, flat.numel())
+    ops = {"all_gather": lambda: cc.all_gather_cat(flat[None], 0,
+                                                   layout.group),
+           "reduce_scatter": lambda: cc.reduce_scatter_dim(whole, 0,
+                                                           layout.group),
+           "all_reduce": lambda: cc.all_reduce_(rest.clone(), layout.group)}
+    out = {}
+    for name, fn in ops.items():
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        out[name] = statistics.median(times)
+    out["mb"] = dict(all_gather=flat.numel() * 4 * layout.size / 1e6,
+                     reduce_scatter=whole.numel() * 4 / 1e6,
+                     all_reduce=rest.numel() * 4 / 1e6)
+    return out
 
 
 def ococc_rank(rank, world, port, out):
@@ -3621,6 +3692,7 @@ def phase_ococc_ddp(dev):
             f"overhead, not scaling; card {card}")
     log(f"ococcnet ddp: the two ranks' {len(same)} parameter tensors "
         f"bit-equal")
+    return plain
 
 
 def sst_ddp_frames():
@@ -3827,6 +3899,253 @@ def phase_sharded_eval(dev, occ_dir):
         f"{ranks[0]['seconds']:.2f} / {ranks[1]['seconds']:.2f} s on the "
         f"ranks; one card: the collectives' overhead, not scaling; card "
         f"{card_info()}")
+
+
+# 41-44: the model-parallel layouts, each rank a process of its own
+# (tag, mesh shape, make_train_step options) of phases 41-43
+MP_TP = ("tp", (1, 2), {})
+MP_SP = ("tp_sp", (1, 2), dict(sequence_parallel=True))
+MP_FSDP = ("fsdp", (2, 1), dict(fsdp=True))
+# phase 44's CLI steps
+MP_CLI_STEPS = 3
+
+
+def mp_rank(rank, world, port, out, layouts):
+    """Ranks of phases 41-43: ``world`` 1, an NCCL group of one rank; else
+    rank ``rank`` of ``world`` over gloo on ``cuda:0``. For each (tag, mesh
+    shape, options) of ``layouts`` in turn, phase 38's steps
+    (``ococc_ddp_run``) on this data rank's slice of phase 38's batch;
+    writes ``out/mp_{tag}_{rank}.pt`` with the window-attention launches."""
+    import torch.distributed as dist
+    from objectcentricocccompletion_torch.parallel import multihost
+    if world == 1:
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                                f"{port}", world_size=1, rank=0)
+        dev = torch.device("cuda")
+    else:
+        dev = multihost.initialize(f"127.0.0.1:{port}", world, rank, "gloo",
+                                   "cuda")
+    batch = synthetic_batch(occ_ddp_config(), batch_size=DDP_OCC_BATCH,
+                            seed=0)
+    for tag, shape, kw in layouts:
+        mesh = make_mesh_2d(*shape, device_type="cuda")
+        wa.LAUNCHES.clear()
+        wa.BWD_LAUNCHES.clear()
+        res = ococc_ddp_run(dev, shard_batch(batch, mesh), mesh=mesh, **kw)
+        res["launches"] = dict(wa.LAUNCHES), dict(wa.BWD_LAUNCHES)
+        torch.save(res, os.path.join(out, f"mp_{tag}_{rank}.pt"))
+        torch.cuda.empty_cache()
+    multihost.shutdown()
+
+
+def mp_line(what, res, batch):
+    """One rank's step time, peak and bytes."""
+    b = res["bytes"]
+    log(f"{what}: batch {batch} per data rank, "
+        f"{statistics.median(res['ms'][1:]):.3f} ms/step (median of steps "
+        f"2-{DDP_STEPS}; all {[round(x, 3) for x in res['ms']]}), peak "
+        f"memory {res['peak_gib']:.3f} GiB; parameters {b['params'] / 1e6:.1f}"
+        f" MB, gradients {b['grads'] / 1e6:.1f} MB, AdamW moments "
+        f"{b['moments'] / 1e6:.1f} MB ({sum(b.values()) / 1e6:.1f} MB in "
+        f"all); {res['sharded']} tensors sharded, {res['summed']} summed "
+        f"over the model group; card {card_info()}")
+
+
+def mp_ranks(tag, world, out):
+    ranks = [torch.load(os.path.join(out, f"mp_{tag}_{r}.pt"),
+                        weights_only=False) for r in range(world)]
+    for r, res in enumerate(ranks):
+        if any(res["launches"]):
+            raise AssertionError(f"model parallelism {tag} rank {r}: "
+                                 f"window-attention kernels launched "
+                                 f"{res['launches']}; this path has none")
+    return ranks
+
+
+def ranks_bit_equal(what, ranks):
+    for res in ranks[1:]:
+        differ = [n for n, p in ranks[0]["params"].items()
+                  if not torch.equal(p, res["params"][n])]
+        if differ:
+            raise AssertionError(f"{what}: the ranks' whole parameters "
+                                 f"differ in {len(differ)} tensors")
+
+
+def phase_model_parallel(dev, plain):
+    """41-43. Model-parallel OcOccNet training, phase 38's float32 steps
+    (``OcOccNetConfig()``, packed, dropout on, global batch
+    ``DDP_OCC_BATCH``) against its plain step ``plain`` at its bars, each
+    run a process group of its own killed at ``RANK_WAIT`` s: 41 TP, (a)
+    an NCCL group of one rank on a (1, 1) mesh, (b) two gloo ranks on
+    ``cuda:0``, mesh (1, 2); 42 FSDP, two gloo ranks, mesh (2, 1), with
+    its collectives timed alone; 43 TP with sequence parallelism, mesh (1,
+    2), in 41 (b)'s processes. Per rank: ms per step, peak, parameter,
+    gradient and moment bytes. 0 window-attention launches."""
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        t = time.perf_counter()
+        run_ranks([rank_argv("mp_rank", 0, 1, free_port(), out,
+                             [("nccl", (1, 1), {})])], "tp nccl x1")
+        t_a = time.perf_counter() - t
+        t = time.perf_counter()
+        port = free_port()
+        run_ranks([rank_argv("mp_rank", r, 2, port, out, [MP_TP, MP_SP])
+                   for r in (0, 1)], "tp and tp + sp gloo x2")
+        t_b = time.perf_counter() - t
+        t = time.perf_counter()
+        port = free_port()
+        run_ranks([rank_argv("mp_rank", r, 2, port, out, [MP_FSDP])
+                   for r in (0, 1)], "fsdp gloo x2")
+        t_f = time.perf_counter() - t
+        nccl = mp_ranks("nccl", 1, out)[0]
+        tp, tp_sp, fsdp = (mp_ranks(tag, 2, out)
+                           for tag in ("tp", "tp_sp", "fsdp"))
+    card = card_info()
+    equal = compare_occ_steps("41 (a) tp nccl x1, mesh (1, 1), vs plain",
+                              nccl, plain)
+    mp_line("41 (a) tp nccl x1", nccl, DDP_OCC_BATCH)
+    for tag, ranks, batch in (("41 (b) tp gloo x2, mesh (1, 2)", tp,
+                               DDP_OCC_BATCH),
+                              ("42 fsdp gloo x2, mesh (2, 1)", fsdp,
+                               DDP_OCC_BATCH // 2),
+                              ("43 tp + sp gloo x2, mesh (1, 2)", tp_sp,
+                               DDP_OCC_BATCH)):
+        compare_occ_steps(f"{tag} vs plain", ranks[0], plain)
+        ranks_bit_equal(tag, ranks)
+        for r, res in enumerate(ranks):
+            mp_line(f"{tag} rank {r}", res, batch)
+    for r, res in enumerate(fsdp):
+        c = res["collectives"]
+        log(f"42 fsdp rank {r}: the step's collectives alone, "
+            + ", ".join(f"{k} {c[k]:.3f} ms ({c['mb'][k]:.1f} MB)"
+                        for k in ("all_gather", "reduce_scatter",
+                                  "all_reduce"))
+            + f"; card {card}")
+    log(f"41-43: plain (phase 38) {statistics.median(plain['ms'][1:]):.3f} "
+        f"ms/step at {plain['peak_gib']:.3f} GiB; 43's peak per rank "
+        f"{tp_sp[0]['peak_gib']:.3f} / {tp_sp[1]['peak_gib']:.3f} GiB "
+        f"against it; 41 (a) bit-equal to plain: {equal}; processes "
+        f"{t_a:.1f} s (41 a), {t_b:.1f} s (41 b + 43), {t_f:.1f} s (42); "
+        f"0 window-attention launches; card {card}")
+
+
+def mp_cli_rank(argv, out):
+    """One process of phase 44: ``tools/train.py`` on ``argv``, then the
+    window-attention launches to ``out``."""
+    train_cli.main(argv)
+    torch.save((dict(wa.LAUNCHES), dict(wa.BWD_LAUNCHES)), out)
+
+
+def mp_cli_compare(what, work, one, cfg, dev):
+    """Phase 44's bars between a model-parallel CLI run's ``work`` and the
+    one-process run's ``one``: every logged step's losses and
+    ``grad_norm`` at phase 38's bars, the final checkpoint's parameters
+    within 2 lr per step (AdamW's step, whose sign may differ where a
+    gradient is float noise around 0) plus rounding; the checkpoint
+    restored in one process names the file's tree (``tree_hash``)."""
+    rows = [[json.loads(line) for line in open(os.path.join(d,
+                                                            "metrics.jsonl"))]
+            for d in (work, one)]
+    if not ([r["step"] for r in rows[0]] == [r["step"] for r in rows[1]]
+            == list(range(1, MP_CLI_STEPS + 1))):
+        raise AssertionError(f"{what}: logged steps {rows}")
+    for got, ref in zip(*rows):
+        for k, v in ref.items():
+            if not k.startswith(("loss", "grad_norm")):
+                continue
+            tol = (OCC_STEP_GRAD_NORM_RTOL * v if k == "grad_norm"
+                   else OCC_STEP_LOSS_ATOL)
+            if not abs(got[k] - v) <= tol:
+                raise AssertionError(f"{what} step {ref['step']}: {k} "
+                                     f"{got[k]} vs {v}")
+    path = os.path.join(work, "ckpt", f"step_{MP_CLI_STEPS}.pt")
+    mp, ref = (torch.load(p, map_location="cpu", weights_only=True)
+               for p in (path, os.path.join(one, "ckpt",
+                                            f"step_{MP_CLI_STEPS}.pt")))
+    bar = 2 * sum(r["lr"] for r in rows[1]) + OCC_STEP_ROUNDING
+    worst = max(float((mp["model"][n] - p).abs().max())
+                for n, p in ref["model"].items())
+    if set(mp["model"]) != set(ref["model"]) or not worst <= bar:
+        raise AssertionError(f"{what}: checkpoint parameters {worst} (bar "
+                             f"{bar})")
+    model, optimizer, _ = create_train_state(cfg, MP_CLI_STEPS, dev, 0)
+    step = CheckpointManager(os.path.join(work, "ckpt")).restore(model,
+                                                                 optimizer)
+    moments = [st["exp_avg"].shape == p.shape for p, st in
+               optimizer.state.items()]
+    names = [surgery.tree_hash(sd) for sd in (model.state_dict(),
+                                              mp["model"], ref["model"])]
+    if step != MP_CLI_STEPS or not all(moments) or len(moments) != \
+            len(list(model.parameters())) or names[0] != names[1]:
+        raise AssertionError(f"{what}: restored step {step}, moments whole "
+                             f"{sum(moments)} of {len(moments)}, names "
+                             f"{names}")
+    log(f"{what}: {MP_CLI_STEPS} steps, losses "
+        f"{[round(r['loss'], 6) for r in rows[0]]} vs "
+        f"{[round(r['loss'], 6) for r in rows[1]]}, grad_norm "
+        f"{[round(r['grad_norm'], 6) for r in rows[0]]} vs "
+        f"{[round(r['grad_norm'], 6) for r in rows[1]]}; checkpoint "
+        f"parameters {worst:.3e} from one process's (bar {bar:.3e}); "
+        f"restored in one process at step {step}, whole moments, "
+        f"tree_hash {names[0][:8]} = the file's; one process's "
+        f"{names[2][:8]} (equal: {names[0] == names[2]}); "
+        f"{rows[0][-1]['tracklets_per_sec']:.2f} vs "
+        f"{rows[1][-1]['tracklets_per_sec']:.2f} tracklets/s at the last "
+        f"step; card {card_info()}")
+
+
+def phase_mp_cli(dev, occ_dir):
+    """44. ``tools/train.py ococcnet --tp 2 --fsdp --sequence-parallel`` in
+    four gloo processes on ``cuda:0`` (mesh (2, 2)) and ``ctrl --tp 2`` in
+    two (mesh (1, 2)), ``MP_CLI_STEPS`` float32 steps on phase 8's
+    tracklets, each against ``train`` in this process at the global batch
+    (``mp_cli_compare``); 0 window-attention launches."""
+    torch.cuda.empty_cache()
+    data = os.path.join(occ_dir, "data")
+    flags = ["--proposals", os.path.join(data, "proposals.pkl"),
+             "--gt-candidates", os.path.join(data, "gt_candidates.pkl"),
+             "--poses", os.path.join(data, "poses.pkl"), "--occ-root",
+             os.path.join(data, "occ_gt"), "--total-steps",
+             str(MP_CLI_STEPS), "--log-interval", "1", "--device", "cuda",
+             "--seed", "0", "--dist-backend", "gloo"]
+    paths = dataset_paths(data)
+    with tempfile.TemporaryDirectory() as out:
+        for model, world, extra in (
+                ("ococcnet", 4, ["--tp", "2", "--fsdp",
+                                 "--sequence-parallel"]),
+                ("ctrl", 2, ["--tp", "2"])):
+            work = os.path.join(out, model)
+            port = free_port()
+            t = time.perf_counter()
+            run_ranks([rank_argv(
+                "mp_cli_rank", [model, *flags, "--work-dir", work,
+                                "--coordinator", f"127.0.0.1:{port}",
+                                "--num-processes", str(world),
+                                "--process-id", str(r), *extra],
+                os.path.join(out, f"{model}_{r}.pt")) for r in range(world)],
+                f"{model} cli {' '.join(extra)} x{world}")
+            seconds = time.perf_counter() - t
+            for r in range(world):
+                launched = torch.load(os.path.join(out, f"{model}_{r}.pt"))
+                if any(launched):
+                    raise AssertionError(f"{model} cli rank {r}: "
+                                         f"window-attention kernels "
+                                         f"launched {launched}")
+            cfg = train_cli.ococc_train_config(model)
+            data_axis = world // 2
+            one = os.path.join(out, f"{model}_one")
+            ds = TrackletDataset(cfg=cfg, class_names=cfg.class_names,
+                                 **paths)
+            wa.LAUNCHES.clear()
+            wa.BWD_LAUNCHES.clear()
+            train_tracklets(dataclasses.replace(
+                cfg, batch_size=data_axis * cfg.batch_size), ds, one,
+                total_steps=MP_CLI_STEPS, log_interval=1, device=dev)
+            no_kernel_launches(f"{model} cli one process")
+            mp_cli_compare(f"44 {model} cli {' '.join(extra)} x{world} "
+                           f"({seconds:.1f} s) vs one process at batch "
+                           f"{data_axis * cfg.batch_size}", work, one, cfg,
+                           dev)
 
 
 def phase_surgery(dev, occ_dir, fsd_ckpt):
@@ -4162,17 +4481,27 @@ def main():
         for name, run in (
                 ("36 surgery", lambda: phase_surgery(
                     dev, occ_dir, os.path.join(fsd_work, "fsd", "ckpt"))),
-                ("37 serving", lambda: phase_serving(dev)),
-                ("38 ococcnet ddp", lambda: phase_ococc_ddp(dev))):
+                ("37 serving", lambda: phase_serving(dev))):
             t = time.perf_counter()
             run()
             log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        plain = phase_ococc_ddp(dev)
+        log(f"phase 38 ococcnet ddp: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         ddp_fwd, ddp_bwd = phase_sst_ddp(dev)
         log(f"phase 39 sst ddp: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         phase_sharded_eval(dev, occ_dir)
         log(f"phase 40 sharded evaluation: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_model_parallel(dev, plain)
+        log(f"phase 41-43 model parallelism: "
+            f"{time.perf_counter() - t:.1f} s")
+        del plain
+        t = time.perf_counter()
+        phase_mp_cli(dev, occ_dir)
+        log(f"phase 44 model-parallel cli: {time.perf_counter() - t:.1f} s")
 
     # launches on the model's paths: bf16 inference and training run the
     # bf16 kernels, the float32 frame, float32, augmented, nuScenes and

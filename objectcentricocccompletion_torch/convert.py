@@ -100,25 +100,38 @@ def flax_to_state_dict(params: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+def flax_leaf(key: str, shape) -> tuple[tuple[str, ...], tuple[int, ...],
+                                      bool]:
+    """Where a state_dict entry of ``shape`` lies in the flax tree: its
+    path, the permutation ``perm`` with flax dim ``i`` = torch dim
+    ``perm[i]``, and whether the taps are mirrored (``ConvTranspose``)."""
+    mods = re.sub(r"(layers|neck_convs|neck_norms)\.(\d+)", r"\1@\2",
+                  key).split(".")
+    *mods, name = [m.replace("@", ".") for m in mods]
+    mods = [_rename(m, _INVERSE) for m in mods]
+    nd = len(shape)
+    perm, mirrored = tuple(range(nd)), False
+    if name == "weight" and nd == 2:
+        perm, name = (1, 0), "kernel"
+    elif name == "weight" and nd == 4 and _transposed(mods, shape[2:]):
+        perm, name, mirrored = (2, 3, 0, 1), "kernel", True
+    elif name == "weight" and nd == 4:
+        perm, name = (2, 3, 1, 0), "kernel"
+    elif name == "weight":
+        name = "scale"
+    return tuple(mods) + (name,), perm, mirrored
+
+
 def state_dict_to_flax(state_dict: dict[str, torch.Tensor]) -> dict:
     """The inverse of :func:`flax_to_state_dict`: a state_dict (parameters
     only) -> nested flax params with numpy leaves."""
     tree: dict = {}
     for key, t in state_dict.items():
         a = t.detach().cpu().float().numpy()
-        mods = re.sub(r"(layers|neck_convs|neck_norms)\.(\d+)", r"\1@\2",
-                      key).split(".")
-        *mods, name = [m.replace("@", ".") for m in mods]
-        mods = [_rename(m, _INVERSE) for m in mods]
-        if name == "weight" and a.ndim == 2:
-            a, name = a.T, "kernel"
-        elif name == "weight" and a.ndim == 4 and _transposed(mods,
-                                                               a.shape[2:]):
-            a, name = a.transpose(2, 3, 0, 1)[::-1, ::-1], "kernel"
-        elif name == "weight" and a.ndim == 4:
-            a, name = a.transpose(2, 3, 1, 0), "kernel"
-        elif name == "weight":
-            name = "scale"
+        (*mods, name), perm, mirrored = flax_leaf(key, a.shape)
+        a = a.transpose(perm)
+        if mirrored:
+            a = a[::-1, ::-1]
         node = tree
         for m in mods:
             node = node.setdefault(m, {})

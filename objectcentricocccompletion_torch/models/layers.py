@@ -12,6 +12,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.routes import relu
+from ..parallel import sp
 
 LN_EPS = 1e-3
 
@@ -28,8 +29,16 @@ def dense(layer: nn.Linear, x: torch.Tensor,
           dtype: torch.dtype | None = None) -> torch.Tensor:
     """A flax ``Dense(dtype=...)``: input, weight and bias are cast to the
     computation dtype (parameters stay float32 in the module); ``None``
-    keeps the input's dtype."""
+    keeps the input's dtype.
+
+    The one place that knows a layer is tensor-parallel: a layer whose
+    weight holds this rank's rows of the output (``column_parallel``, set
+    by ``parallel/train.py``) runs through that object, which returns the
+    whole output."""
     dt = dtype or x.dtype
+    parallel = getattr(layer, "column_parallel", None)
+    if parallel is not None:
+        return parallel(layer, x.to(dt), dt)
     bias = None if layer.bias is None else layer.bias.to(dt)
     return F.linear(x.to(dt), layer.weight.to(dt), bias)
 
@@ -135,17 +144,22 @@ def _mul_u32(h: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def hash_bits(key: torch.Tensor, shape: Sequence[int],
-              offset: int = 0) -> torch.Tensor:
+              offset: int = 0, counter: torch.Tensor | None = None
+              ) -> torch.Tensor:
     """The JAX package's ``_hash_bits``, bit for bit: a murmur3 finalizer
-    over the counter ``offset + iota(prod(shape))``, keyed by the two
-    uint32 words of ``key`` (an int64 tensor ``[2]``). The uint32
-    arithmetic runs in int64 and is masked to 32 bits; returns int64
-    values in [0, 2^32) of ``shape``, on ``key``'s device."""
+    over the counter ``offset + iota(prod(shape))`` (or the int64
+    ``counter`` of ``shape`` given), keyed by the two uint32 words of
+    ``key`` (an int64 tensor ``[2]``). The uint32 arithmetic runs in int64
+    and is masked to 32 bits; returns int64 values in [0, 2^32) of
+    ``shape``, on ``key``'s device."""
     n = math.prod(shape)
     k0, k1 = key[0], key[-1]
     # the uint32 counter wraps as JAX's iota does
-    h = torch.arange(offset, offset + n, dtype=torch.int64,
-                     device=key.device) & _U32
+    if counter is not None:
+        h = counter.reshape(-1) & _U32
+    else:
+        h = torch.arange(offset, offset + n, dtype=torch.int64,
+                         device=key.device) & _U32
     h = (_mul_u32(h, 2654435761) + k0) & _U32
     h = h ^ (h >> 16)
     h = _mul_u32(h, 0x85EBCA6B)
@@ -173,7 +187,13 @@ class DropoutKeys:
     [B, L, K, C], the SIR encoders' [B * L, P, C] dense and [B, N, C]
     packed), so the counter of a rank's mask starts at ``rank`` times its
     element count: the masks of each slice are those of one draw over the
-    global batch, as the JAX step draws them over its global shape."""
+    global batch, as the JAX step draws them over its global shape. Under
+    sequence parallelism a site inside an SP region (``parallel/sp.py``:
+    the packed SIR sites' ``[B, N, C]``, the decoder's ``[B, L, K, C]``)
+    holds a slice of its sequence axis too, and each element's counter is
+    its flat index in the global shape (:func:`global_counter`), as JAX's
+    sharded iota gives. Under a data x model mesh ``rank`` is the data
+    rank: the model ranks of one data rank share its batch."""
 
     def __init__(self, base: torch.Tensor | None = None,
                  words: Sequence[torch.Tensor] | None = None,
@@ -202,11 +222,40 @@ def dropout(x: torch.Tensor, rate: float, keys: DropoutKeys | None
     if keys is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    bits = hash_bits(keys(), x.shape, keys.rank * x.numel())
+    region = sp.current_region()
+    if region is None:
+        bits = hash_bits(keys(), x.shape, keys.rank * x.numel())
+    else:
+        bits = hash_bits(keys(), x.shape, counter=global_counter(
+            x.shape, keys.rank, region, x.device))
     thresh = min(int(round(keep * 4294967296.0)), _U32)
     # a host number, exact in x's dtype: no copy to the device
     scale = float(torch.tensor(1.0 / keep, dtype=torch.float32).to(x.dtype))
     return x * torch.where(bits < thresh, scale, 0.0).to(x.dtype)
+
+
+def global_counter(shape: Sequence[int], rank: int, region: sp.Region,
+                   device=None) -> torch.Tensor:
+    """Each element's flat index (int64, of ``shape``) in the global
+    tensor of which ``shape`` is a slice: the leading axis is data rank
+    ``rank``'s ``shape[0]`` rows, and ``region.dim`` holds ``[offset,
+    offset + shape[dim])`` of ``region.total``."""
+    if region.dim == 0:
+        raise ValueError("the sequence axis cannot be the batch axis")
+    offsets = [0] * len(shape)
+    offsets[0] = rank * shape[0]
+    offsets[region.dim] = region.offset
+    sizes = list(shape)
+    sizes[region.dim] = region.total
+    counter = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        view = [1] * len(shape)
+        view[d] = shape[d]
+        counter = counter + ((torch.arange(shape[d], device=device)
+                              + offsets[d]) * stride).view(view)
+        stride *= sizes[d]
+    return counter
 
 
 class Mlp(nn.Module):

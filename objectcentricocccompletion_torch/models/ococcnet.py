@@ -29,9 +29,18 @@ both SIR encoders in the backward instead of keeping their activations
 (``torch.utils.checkpoint``), on the dense layout only, with no dropout in
 them (the JAX package's ``nn.remat`` drops the train flag); the packed
 layout ignores it, as in the JAX package.
+
+Under sequence parallelism (``parallel/sp.py``, set by the model-parallel
+train step) each rank of the model axis encodes its slice of the packed
+points (block-aligned) and decodes its slice of the occupancy queries, as
+the JAX package shards them at the same two places; the per-frame tables,
+the occupancy loss and its counts are completed over the model group.
+:func:`sequence_sharded` names the parameters that read the sliced
+activations.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -45,7 +54,8 @@ from ..core import coder
 from ..data.tracklet import TrackletBatch
 from ..ops import packed as pk
 from ..ops import roi_pool as rp
-from ..parallel.multihost import global_sum, world_size
+from ..parallel import sp
+from ..parallel.multihost import data_size, global_sum
 from ..utils.device import resolve_device
 from .layers import (DropoutKeys, Mlp, he_normal_, init_flax_like_,
                      sinusoidal_position_encoding)
@@ -77,6 +87,19 @@ class PointLayout(NamedTuple):
         if self.order is not None:
             return torch.gather(self.pool.mask, 2, self.order)
         return self.pool.mask
+
+
+def sequence_sharded(cfg: OcOccNetConfig) -> tuple[str, ...]:
+    """The prefixes of the ``OcOccNetWithLoss`` parameters that read
+    sliced activations under sequence parallelism: both SIR encoders on
+    the packed layout, and the decoder's query-side layers. Their
+    gradients are summed over the model group; every other parameter sees
+    replicated tensors only."""
+    packed = ("net.roi_encoder.", "net.ae_encoder.") \
+        if cfg.packed_point_budget else ()
+    decoder = ("net.occ_decoder.in_pos.", "net.occ_decoder.in_norm.",
+               "net.occ_decoder.mlp.") if cfg.variant == "ococc" else ()
+    return packed + decoder
 
 
 def _dropouts(cfg: OcOccNetConfig) -> list[float]:
@@ -265,7 +288,6 @@ class OcOccNet(nn.Module):
                        packed: pk.PackedPoints, pts_xyz: torch.Tensor,
                        pts_feats: torch.Tensor, keys: DropoutKeys | None):
         """The encoders on the packed layout, with frame segment ids."""
-        cfg = self.cfg
         L = batch.rois.shape[1]
         N = packed.valid.shape[1]
         seg, bseg = packed.seg_ids, packed.block_seg
@@ -274,12 +296,32 @@ class OcOccNet(nn.Module):
         pc = pk.pack_rows(torch.cat(
             [pts_xyz, pts_feats, pool.local_xyz, pool.boundary_offset,
              pool.is_in_margin[..., None], pool.rel_xyz], -1), packed.order)
-        F = pts_feats.shape[-1]
+        nonempty = pk.segment_any(seg, L)                   # [B, L]
+        valid, region = packed.valid, contextlib.nullcontext()
+        if sp.size() > 1:
+            # SP: this rank's slice of whole blocks of the packed points
+            q = N // bseg.shape[1] if bseg is not None else 1
+            off, N = sp.seq_slice(N, q)
+            region = sp.region(1, off, valid.shape[1])
+            pc = sp.shard_seq(pc, 1)
+            valid, seg = valid.narrow(1, off, N), seg.narrow(1, off, N)
+            if bseg is not None:
+                bseg = bseg.narrow(1, off // q, N // q)
+        with region:
+            return self._encode_points(batch, pc, valid, seg, bseg, N,
+                                       nonempty, pts_feats.shape[-1], keys)
+
+    def _encode_points(self, batch, pc, valid, seg, bseg, N, nonempty, F,
+                       keys):
+        """Both encoders on the packed rows ``pc`` [B, N, C] (``F`` point
+        feature channels) with their slots' ``valid``, ``seg`` and
+        ``bseg``; ``nonempty`` is the whole layout's."""
+        cfg = self.cfg
+        L = batch.rois.shape[1]
         o = 3 + F
         p_xyz, p_feats = pc[..., 0:3], pc[..., 3:o]
         p_local, p_boundary = pc[..., o:o + 3], pc[..., o + 3:o + 9]
         p_margin, p_rel = pc[..., o + 9:o + 10], pc[..., o + 10:o + 13]
-        nonempty = pk.segment_any(seg, L)                   # [B, L]
 
         def bb(table):
             # per-frame rows to the points: one gather per block if aligned
@@ -289,7 +331,7 @@ class OcOccNet(nn.Module):
 
         enc_feats = torch.cat([p_feats, bb(batch.roi_scores[..., None])], -1)
         f_cluster = torch.cat([p_local, p_boundary, p_margin, p_rel], -1)
-        _, roi_feats = self.roi_encoder(p_xyz, enc_feats, packed.valid,
+        _, roi_feats = self.roi_encoder(p_xyz, enc_feats, valid,
                                         f_cluster, seg, L, bseg, keys)
         roi_feats = torch.where(nonempty[..., None], roi_feats, 0.0)
         if not self.with_occ:
@@ -298,7 +340,7 @@ class OcOccNet(nn.Module):
         vox = rp.quantize_to_voxel_centers_aligned(
             p_local, bb(batch.rois[..., 3:6]), cfg.ae_voxel_size)
         ae_in = torch.cat([p_feats[..., :2], p_boundary, p_margin, vox], -1)
-        _, ae_feats = self.ae_encoder(p_local, ae_in, packed.valid, None,
+        _, ae_feats = self.ae_encoder(p_local, ae_in, valid, None,
                                       seg, L, bseg, keys)
         ae_feats = torch.where(nonempty[..., None], ae_feats, 0.0)
         return roi_feats, ae_feats, nonempty
@@ -391,7 +433,10 @@ class OcOccNetWithLoss(nn.Module):
         scaled by W, so that DDP's average of the ranks' gradients is that
         of ``sum / max(global count, 1)``, the global batch's loss; the
         metrics are the global batch's too. The ranks' mean of each loss
-        entry is the global batch's."""
+        entry is the global batch's. Under a data x model mesh W is the
+        data axis's size and the sums run over the data group; under
+        sequence parallelism the occupancy terms over this rank's queries
+        are completed over the model group."""
         cfg = self.cfg
         out = self.net(batch, train=train, keys=keys)
         B, L = out["cls_logit"].shape
@@ -407,7 +452,7 @@ class OcOccNetWithLoss(nn.Module):
         posf = (batch.gt_valid & out["nonempty"]).float()
         num_pos = global_sum(posf.sum())
         # DDP averages the ranks' gradients: W x the rank's share
-        pos_den = num_pos.clamp(min=1.0) / world_size()
+        pos_den = num_pos.clamp(min=1.0) / data_size()
         targets = coder.encode_roi_targets(batch.rois, batch.gt_boxes)
         l1 = (out["bbox_pred"] - targets).abs() * self.code_weights
         loss_bbox = (cfg.loss_bbox_weight * (l1 * posf[..., None]).sum()
@@ -438,17 +483,21 @@ class OcOccNetWithLoss(nn.Module):
 
         queries = gt_occ_to_roi_frame(batch.occ_points, batch.gt_boxes,
                                       batch.rois)             # [B, L, K, 3]
-        occ_logits = self.net.decode_occ(out["shape_latent"], queries,
+        K = queries.shape[2]
+        # SP: this rank's slice of the K query axis
+        off, k = sp.seq_slice(K)
+        occ_logits = self.net.decode_occ(out["shape_latent"],
+                                         sp.shard_seq(queries, 2),
                                          train=train, keys=keys)
-        occ_lab = (batch.occ_labels == 1)[:, None].expand(
+        occ_lab = (batch.occ_labels.narrow(1, off, k) == 1)[:, None].expand(
             occ_logits.shape).float()
         conf = (batch.occ_score > cfg.occ_label_thresh).float()
         occ_w = (posf[..., None] * conf[:, None, None]
-                 * batch.occ_mask[:, None].float())
-        K = occ_logits.shape[-1]
+                 * batch.occ_mask.narrow(1, off, k)[:, None].float())
         occ_bce = _bce_with_logits(occ_logits, occ_lab)
-        loss_occ = (cfg.loss_occ_weight * (occ_bce * occ_w).sum()
-                    / ((num_pos * K).clamp(min=1.0) / world_size()))
+        loss_occ = (cfg.loss_occ_weight
+                    * sp.complete_sum((occ_bce * occ_w).sum())
+                    / ((num_pos * K).clamp(min=1.0) / data_size()))
         total = loss_cls + loss_bbox + loss_occ + loss_corner
         losses = dict(loss_rcnn_cls=loss_cls, loss_rcnn_bbox=loss_bbox,
                       loss_rcnn_occ=loss_occ, loss=total)
@@ -475,11 +524,15 @@ def _bce_with_logits(logits: torch.Tensor, targets: torch.Tensor
             + torch.log1p(torch.exp(-logits.abs())))
 
 
-def _safe_mean(num_mask: torch.Tensor, den_mask: torch.Tensor
-               ) -> torch.Tensor:
-    """The global batch's share: both counts summed over the ranks."""
-    counts = global_sum(torch.stack([num_mask.float().sum(),
-                                     den_mask.float().sum()]))
+def _safe_mean(num_mask: torch.Tensor, den_mask: torch.Tensor,
+               sliced: bool = False) -> torch.Tensor:
+    """The global batch's share: both counts summed over the ranks (the
+    data group's; ``sliced``: over this rank's slice of the queries, and
+    then over the model group too)."""
+    counts = torch.stack([num_mask.float().sum(), den_mask.float().sum()])
+    if sliced:
+        counts = sp.complete_sum(counts)
+    counts = global_sum(counts)
     return counts[0] / counts[1].clamp(min=1.0)
 
 
@@ -495,7 +548,8 @@ def _metrics(out, soft, cls_w, occ_logits, occ_lab, occ_w, num_pos) -> dict:
         return dict(
             num_pos_rois=num_pos.detach(), cls_acc=acc,
             occ_recall_pos=_safe_mean(occ_pred & occ_pos & occ_valid,
-                                      occ_pos & occ_valid),
+                                      occ_pos & occ_valid, True),
             occ_recall_neg=_safe_mean(~occ_pred & ~occ_pos & occ_valid,
-                                      ~occ_pos & occ_valid),
-            occ_frac_occupied=_safe_mean(occ_pos & occ_valid, occ_valid))
+                                      ~occ_pos & occ_valid, True),
+            occ_frac_occupied=_safe_mean(occ_pos & occ_valid, occ_valid,
+                                         True))

@@ -14,12 +14,21 @@ Every shape is static and nothing reads a value back to the host: the
 binary searches run a fixed ``P.bit_length()`` steps on the device, and
 the inverse permutation scatters into ``budget + 1`` slots whose spare one
 takes the dropped points and is cut off.
+
+Under sequence parallelism (``parallel/sp.py``) a rank holds a contiguous
+slice of the ``[B, N]`` points, on block boundaries in the block-aligned
+form: inside an SP region each segment reduction reduces its slice, then
+combines the ``[B, S, C]`` tables (and the counts, for a mean) over the
+model group, and a broadcast-back reads the replicated table for the
+slice's points (its gradient is summed over the group).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from ..parallel import sp
 
 
 class PackedPoints(NamedTuple):
@@ -130,7 +139,18 @@ def segment_max_blocked(x: torch.Tensor, valid: torch.Tensor,
     oh = block_seg[..., None] == torch.arange(num_segments,
                                               device=x.device)  # [B, NB, S]
     out = torch.where(oh[..., None], bmax[:, :, None, :], neg).amax(1)
-    return torch.where(oh.any(1)[..., None], out, 0.0)
+    return _empty_to_zero(out, oh.any(1), neg)
+
+
+def _empty_to_zero(out: torch.Tensor, has: torch.Tensor, neg: float
+                   ) -> torch.Tensor:
+    """Empty segments give 0. Inside an SP region the slices' maxima
+    combine first; a segment is empty where no slice's maximum rose above
+    ``neg`` (a block that holds a point holds a real value)."""
+    if sp.current_region() is not None and sp.size() > 1:
+        out = sp.combine_max(out)
+        return torch.where(out > neg / 2, out, 0.0)
+    return torch.where(has[..., None], out, 0.0)
 
 
 def segment_mean_blocked(x: torch.Tensor, valid: torch.Tensor,
@@ -144,8 +164,8 @@ def segment_mean_blocked(x: torch.Tensor, valid: torch.Tensor,
     bcnt = valid.reshape(B, NB, q).sum(2)                     # [B, NB]
     oh = (block_seg[..., None] == torch.arange(
         num_segments, device=x.device)).to(x.dtype)           # [B, NB, S]
-    s = torch.einsum("bns,bnc->bsc", oh, bsum)
-    n = torch.einsum("bns,bn->bs", oh, bcnt.to(x.dtype))
+    s = sp.combine_sum(torch.einsum("bns,bnc->bsc", oh, bsum))
+    n = sp.combine_sum(torch.einsum("bns,bn->bs", oh, bcnt.to(x.dtype)))
     return s / n[..., None].clamp(min=1)
 
 
@@ -168,7 +188,7 @@ def segment_max(x: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
     oh = seg_ids[..., None] == torch.arange(num_segments,
                                             device=x.device)  # [B, N, S]
     out = torch.where(oh[..., None], x[:, :, None, :], neg).amax(1)
-    return torch.where(oh.any(1)[..., None], out, 0.0)
+    return _empty_to_zero(out, oh.any(1), neg)
 
 
 def segment_sum(x: torch.Tensor, seg_ids: torch.Tensor, num_segments: int
@@ -183,8 +203,8 @@ def segment_mean(x: torch.Tensor, seg_ids: torch.Tensor, num_segments: int
                  ) -> torch.Tensor:
     oh = (seg_ids[..., None] == torch.arange(
         num_segments, device=x.device)).to(x.dtype)
-    s = torch.einsum("bns,bnc->bsc", oh, x)
-    n = oh.sum(1)[..., None]
+    s = sp.combine_sum(torch.einsum("bns,bnc->bsc", oh, x))
+    n = sp.combine_sum(oh.sum(1))[..., None]
     return s / n.clamp(min=1)
 
 
@@ -199,7 +219,8 @@ def broadcast_back(g: torch.Tensor, seg_ids: torch.Tensor) -> torch.Tensor:
     [B, N, C]. Invalid ids clamp; callers mask those rows."""
     B, S, C = g.shape
     ids = seg_ids.clamp(0, S - 1)
-    return torch.gather(g, 1, ids[..., None].expand(B, ids.shape[1], C))
+    return torch.gather(sp.to_shards(g), 1,
+                        ids[..., None].expand(B, ids.shape[1], C))
 
 
 def broadcast_back_blocked(g: torch.Tensor, block_seg: torch.Tensor,
@@ -209,6 +230,7 @@ def broadcast_back_blocked(g: torch.Tensor, block_seg: torch.Tensor,
     B, S, C = g.shape
     NB = block_seg.shape[1]
     ids = block_seg.clamp(0, S - 1)
-    gb = torch.gather(g, 1, ids[..., None].expand(B, NB, C))   # [B, NB, C]
+    gb = torch.gather(sp.to_shards(g), 1,
+                      ids[..., None].expand(B, NB, C))        # [B, NB, C]
     return gb[:, :, None, :].expand(B, NB, n_points // NB, C).reshape(
         B, n_points, C)

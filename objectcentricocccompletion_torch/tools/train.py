@@ -7,7 +7,8 @@
         [--ctrl-class veh] [--fixed-ae] [--dtype bfloat16] \\
         [--loader-workers N] [--tiny] [--device cuda] [--work-dir DIR] \\
         [--coordinator HOST:PORT --num-processes N --process-id R \\
-         [--dist-backend nccl|gloo]]
+         [--dist-backend nccl|gloo] [--tp N] [--fsdp] \\
+         [--sequence-parallel]]
     python -m objectcentricocccompletion_torch.tools.train sst \\
         --infos data/infos.pkl --data-root data --total-steps 1000 \\
         [--dtype bfloat16] [--augment] [--gt-sample N] [--num-sweeps N] \\
@@ -84,11 +85,22 @@ writes the checkpoints and ``metrics.jsonl``. Rank R runs on
 serves several ranks on one card. ``fsdpp`` trains on one device, as in
 the JAX package.
 
-The flags of the JAX CLI are kept. Those of options not ported yet
-(``--tp``, ``--fsdp``, ``--sequence-parallel``) raise
-``NotImplementedError``, and so do ``--loader-workers`` of a detector
-family, which the JAX CLI accepts and ignores, and a multi-process
-``fsdpp``.
+``ococcnet`` / ``ctrl`` also train model-parallel, as the JAX CLI passes
+the flags to the tracklet trainer: ``--tp N`` lays the processes out on a
+``[num_processes / N, N]`` data x model mesh and shards the wide Dense
+layers over the model axis, ``--fsdp`` shards the large parameters and
+their AdamW moments over the data axis (and wins over ``--tp``, whose axis
+then serves sequence parallelism only), ``--sequence-parallel`` splits the
+packed points and the decoder's queries over the model axis
+(``training/trainer.py::train``). One process per card: where the JAX
+CLI drives every chip from one process, ``--tp N`` needs a multiple of N
+processes, and ``--sequence-parallel`` needs ``--tp`` > 1; both raise
+``ValueError`` otherwise.
+
+The flags of the JAX CLI are kept. ``--tp``, ``--fsdp`` and
+``--sequence-parallel`` of a detector family, which the JAX CLI accepts and
+ignores, raise ``NotImplementedError``, and so do ``--loader-workers`` of a
+detector family and a multi-process ``fsdpp``.
 """
 from __future__ import annotations
 
@@ -178,14 +190,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda",
                    help="cuda (the default) or cpu")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel size (not ported)")
+                   help="ococcnet / ctrl: model axis size (tensor "
+                        "parallelism); needs a multiple of N processes")
     p.add_argument("--fsdp", action="store_true",
-                   help="sharded parameters and moments (not ported)")
+                   help="ococcnet / ctrl: shard the large parameters and "
+                        "their AdamW moments over the data axis")
     p.add_argument("--loader-workers", type=int, default=0,
                    help="ococcnet / ctrl: sample-building worker processes; "
                         "0: in-process build with a prefetch thread")
     p.add_argument("--sequence-parallel", action="store_true",
-                   help="sharded point / query axes (not ported)")
+                   help="ococcnet / ctrl: split the packed points and the "
+                        "occupancy queries over the model axis (--tp > 1)")
     # the multi-process launch: one process per card, each started with
     # its own --process-id
     p.add_argument("--coordinator", default=None,
@@ -220,17 +235,34 @@ def ococc_train_config(model: str = "ococcnet", tiny: bool = False,
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
-    unported = {"--tp": args.tp > 1, "--fsdp": args.fsdp,
-                "--sequence-parallel": args.sequence_parallel,
-                "--loader-workers of a detector family":
-                    args.loader_workers > 0
-                    and args.model not in ("ococcnet", "ctrl"),
+    detector = args.model not in ("ococcnet", "ctrl")
+    tracklet_only = {"--tp": args.tp > 1, "--fsdp": args.fsdp,
+                     "--sequence-parallel": args.sequence_parallel}
+    for flag, used in tracklet_only.items():
+        if used and detector:
+            raise NotImplementedError(
+                f"{flag} trains ococcnet / ctrl only: the JAX CLI passes it "
+                f"to the tracklet trainer and ignores it for {args.model}")
+    unported = {"--loader-workers of a detector family":
+                    args.loader_workers > 0 and detector,
                 "--num-processes of fsdpp (one device, as in the JAX "
                 "package)": args.model == "fsdpp"
                     and (args.num_processes or 1) > 1}
     for flag, used in unported.items():
         if used:
             raise NotImplementedError(f"{flag} is not ported yet")
+
+
+def _check_model_parallel(args: argparse.Namespace) -> None:
+    """The model-parallel flags' usage errors, before any process joins."""
+    n = args.num_processes or 1
+    if args.sequence_parallel and args.tp <= 1:
+        raise ValueError("--sequence-parallel needs a model axis: --tp > 1")
+    if args.tp < 1 or n % args.tp:
+        raise ValueError(f"--tp {args.tp} needs a multiple of {args.tp} "
+                         f"processes, not --num-processes {n}: one process "
+                         f"per card, each rank of a model group in a "
+                         f"process of its own")
 
 
 def sst_train_config(tiny: bool = False, dtype: str | None = None
@@ -369,6 +401,7 @@ def main(argv=None,
     caller set up stays up."""
     args = parse_args(argv)
     _refuse_unported(args)
+    _check_model_parallel(args)
     dev = multihost.initialize(args.coordinator, args.num_processes,
                                args.process_id, args.dist_backend,
                                args.device)
@@ -395,7 +428,9 @@ def _train(args: argparse.Namespace, dev: torch.device,
                      ckpt_interval=args.ckpt_interval,
                      log_interval=args.log_interval, resume=not args.no_resume,
                      seed=args.seed, device=dev, hooks=hooks,
-                     loader_workers=args.loader_workers)
+                     loader_workers=args.loader_workers, tp=args.tp,
+                     fsdp=args.fsdp,
+                     sequence_parallel=args.sequence_parallel)
     if not args.data_root or not (args.infos or args.dataset == "argo2"):
         raise SystemExit(
             f"{args.model} training needs --infos and --data-root")

@@ -13,6 +13,7 @@ import math
 from typing import Callable, Iterable
 
 import torch
+import torch.distributed as dist
 
 
 def cyclic_cosine_schedule(base_lr: float, total_steps: int,
@@ -81,21 +82,42 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+def _square_sum(tensors) -> torch.Tensor | None:
+    sums = [t.float().square().sum() for t in tensors]
+    return torch.stack(sums).sum() if sums else None
+
+
+def global_norm(tensors: Iterable[torch.Tensor],
+                sharded: Iterable[torch.Tensor] = (),
+                group=None) -> torch.Tensor:
     """optax's ``global_norm``: the square root of the sum of squares of
-    every element, in float32, on the device."""
-    return torch.stack([t.float().square().sum() for t in tensors]).sum() \
-        .sqrt()
+    every element, in float32, on the device. ``sharded``: tensors of
+    which each rank of ``group`` holds a disjoint chunk (a model-parallel
+    layout's shards), whose squares are summed over the group, so that the
+    norm is the whole tensors' on every rank."""
+    total = _square_sum(tensors)
+    part = _square_sum(sharded)
+    if part is not None:
+        if dist.is_available() and dist.is_initialized():
+            dist.all_reduce(part, group=group)
+        total = part if total is None else total + part
+    return total.sqrt()
 
 
 def clip_grad_global_norm_(params: Iterable[torch.Tensor],
-                           max_norm: float = 10.0) -> torch.Tensor:
+                           max_norm: float = 10.0,
+                           sharded: Iterable[torch.Tensor] = (),
+                           group=None) -> torch.Tensor:
     """optax's ``clip_by_global_norm``: where the gradients' global norm is
     at least ``max_norm``, each gradient becomes ``g / norm * max_norm``;
     below it they are left as they are (no epsilon). Returns the norm before
-    clipping. Runs on the device, without a host synchronisation."""
+    clipping. Runs on the device, without a host synchronisation.
+    ``sharded``: parameters whose gradients are chunks over ``group``
+    (:func:`global_norm`)."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = global_norm(grads)
+    shards = [p.grad for p in sharded if p.grad is not None]
+    norm = global_norm(grads, shards, group)
+    grads = grads + shards
     clip = norm >= max_norm
     div = torch.where(clip, norm, torch.ones_like(norm))
     mul = torch.where(clip, torch.full_like(norm, max_norm),

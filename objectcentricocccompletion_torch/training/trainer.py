@@ -14,7 +14,8 @@ from typing import Callable, Sequence
 import torch
 
 from ..data.loader import ThreadPrefetcher, make_loader
-from ..parallel.multihost import rank, sync_hosts, world_size
+from ..parallel.multihost import (data_rank, data_size, make_multihost_mesh,
+                                  rank, sync_hosts)
 from ..parallel.train import create_train_state, make_train_step
 from ..utils.device import resolve_device
 
@@ -23,7 +24,9 @@ class CheckpointManager:
     """``ckpt_dir/step_<N>.pt`` files holding the step, the model's
     ``state_dict`` and the optimizer's state; the newest ``max_keep`` are
     kept. A published or transplanted checkpoint (``training/surgery.py``)
-    holds no optimizer state."""
+    holds no optimizer state. The tensors are whole: a model-parallel run
+    saves the state its layout gathered (``Layout.full_state``), so any
+    process count restores any checkpoint."""
 
     _NAME = re.compile(r"^step_(\d+)\.pt$")
 
@@ -40,11 +43,17 @@ class CheckpointManager:
         return os.path.join(self.dir, f"step_{step}.pt")
 
     def save(self, step: int, model: torch.nn.Module,
-             optimizer: torch.optim.Optimizer) -> str:
+             optimizer: torch.optim.Optimizer,
+             state: tuple[dict, dict] | None = None) -> str:
+        """Write step ``step``: ``model``'s and ``optimizer``'s state dicts,
+        or ``state`` (the two, gathered whole by a model-parallel layout)
+        where it is given."""
         path = self.path(step)
         tmp = path + ".tmp"
-        torch.save({"step": step, "model": model.state_dict(),
-                    "optimizer": optimizer.state_dict()}, tmp)
+        if state is None:
+            state = model.state_dict(), optimizer.state_dict()
+        torch.save({"step": step, "model": state[0],
+                    "optimizer": state[1]}, tmp)
         os.replace(tmp, path)
         for old in self.steps()[:-self.max_keep]:
             os.remove(self.path(old))
@@ -107,7 +116,8 @@ def train(cfg, dataset, work_dir: str, total_steps: int | None = None,
           ckpt_interval: int = 1000, log_interval: int = 50,
           resume: bool = True, seed: int = 0, device="cuda",
           hooks: Sequence[Callable[[int, dict], None]] = (),
-          loader_workers: int = 0) -> int:
+          loader_workers: int = 0, tp: int = 1, fsdp: bool = False,
+          sequence_parallel: bool = False) -> int:
     """Train OcOccNet (``cfg``) on ``dataset`` (a ``TrackletDataset``) on
     ``device`` (``cuda`` unless the caller asks for the CPU), from weights
     drawn with ``seed``: ``cfg.batch_size`` tracklets per step and
@@ -129,15 +139,31 @@ def train(cfg, dataset, work_dir: str, total_steps: int | None = None,
     contiguous slice, and the step is data-parallel
     (``parallel/train.py``), so the run equals one process at the global
     batch. Rank 0 writes the checkpoints and the log, between barriers;
-    every rank resumes from the same file and runs its hooks."""
+    every rank resumes from the same file and runs its hooks.
+
+    Model parallelism, as the JAX trainer's arguments: ``tp`` > 1 lays the
+    ranks out on a ``[world / tp, tp]`` data x model mesh
+    (``make_multihost_mesh``) and shards the wide Dense layers over the
+    model axis; ``fsdp`` shards the large parameters and their AdamW
+    moments over the data axis (and wins over TP: the model axis then
+    serves SP only); ``sequence_parallel`` also splits the packed points
+    and the decoder's queries over the model axis, and needs ``tp`` > 1.
+    The global batch is ``cfg.batch_size`` times the data axis's size; the
+    model ranks of one data rank train on its slice. Checkpoints hold whole
+    tensors, gathered by every rank and written by rank 0; a resumed run
+    restores the whole file on every rank and keeps its shards."""
     dev = resolve_device(device)
-    world, me = world_size(), rank()
-    batch_size = cfg.batch_size * world
+    if sequence_parallel and tp <= 1:
+        raise ValueError("sequence parallelism needs a model axis: tp > 1")
+    mesh = make_multihost_mesh(tp, dev.type) if tp > 1 or fsdp else None
+    shards, me = data_size(mesh), rank()
+    batch_size = cfg.batch_size * shards
     if total_steps is None:
         total_steps = max(len(dataset) // batch_size, 1) * cfg.max_epochs
     loader = ThreadPrefetcher(make_loader(dataset, batch_size, seed=seed,
                                           workers=loader_workers,
-                                          num_shards=world, shard_id=me),
+                                          num_shards=shards,
+                                          shard_id=data_rank(mesh)),
                               depth=2)
     try:
         model, optimizer, schedule = create_train_state(cfg, total_steps,
@@ -148,7 +174,10 @@ def train(cfg, dataset, work_dir: str, total_steps: int | None = None,
             restored = ckpt.restore(model, optimizer)
             if restored is not None:
                 start = restored
-        step_fn = make_train_step(model, optimizer, schedule, seed=seed + 1)
+        step_fn = make_train_step(model, optimizer, schedule, seed=seed + 1,
+                                  mesh=mesh, fsdp=fsdp,
+                                  sequence_parallel=sequence_parallel)
+        layout = step_fn.layout
         t_last = time.time()
         with contextlib.ExitStack() as stack:
             logger = (stack.enter_context(MetricLogger(work_dir,
@@ -169,8 +198,10 @@ def train(cfg, dataset, work_dir: str, total_steps: int | None = None,
                                                                   1e-9)})
                 if (step + 1) % ckpt_interval == 0 or step + 1 == total_steps:
                     sync_hosts("ckpt_save")
+                    whole = (layout.full_state(model, optimizer)
+                             if layout.dims else None)
                     if me == 0:
-                        ckpt.save(step + 1, model, optimizer)
+                        ckpt.save(step + 1, model, optimizer, whole)
                     sync_hosts("ckpt_saved")
     finally:
         loader.close()

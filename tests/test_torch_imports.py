@@ -38,12 +38,13 @@ def test_port_sources_exist():
             "hooks.py", "tracklet_segmentor.py", "votenet.py", "pointnet.py",
             "nuscenes_dataset.py", "indoor_dataset.py",
             "argo2_dataset.py", "surgery.py", "publish_model.py",
-            "export.py", "multihost.py"} <= names
+            "export.py", "multihost.py", "sp.py", "collectives.py"} <= names
     for sub in ("tools_occ", "tools_ctrl"):
         assert (ROOT / "objectcentricocccompletion_torch" / sub /
                 "__init__.py").exists()
-    assert (ROOT / "objectcentricocccompletion_torch" / "parallel" /
-            "train.py").exists()
+    for name in ("train.py", "sp.py"):
+        assert (ROOT / "objectcentricocccompletion_torch" / "parallel" /
+                name).exists()
     csrc = ROOT / "objectcentricocccompletion_torch" / "csrc"
     assert {"window_attention.cu", "window_attention_bwd.cu"} <= \
         {p.name for p in csrc.glob("*.cu")}

@@ -235,21 +235,26 @@ def test_cli_variants_train(data, tmp_path, model, extra, kw):
         assert moved == set(init)
 
 
-@pytest.mark.parametrize("extra", [["--tp", "2"], ["--fsdp"],
-                                   ["--sequence-parallel"],
+@pytest.mark.parametrize("extra", [["--sequence-parallel"],
+                                   ["--tp", "2"],
+                                   ["--tp", "3", "--num-processes", "2"],
                                    ["sst", "--loader-workers", "2"],
                                    ["--coordinator", "localhost:1234"],
                                    ["--num-processes", "2"]])
 def test_cli_refuses_what_is_not_ported(data, tmp_path, extra):
     """A family first: a flag refused for that family only
     (``--loader-workers`` drives the tracklet families' worker pool). The
-    multi-process launch is ported: half of it (``--coordinator`` or
-    ``--num-processes`` alone) is refused by name, as a usage error."""
+    multi-process launch and model parallelism are ported: half of the
+    launch (``--coordinator`` or ``--num-processes`` alone), sequence
+    parallelism without a model axis, and a ``--tp`` that does not divide
+    the processes (one process per card: ``--tp 2`` in one process too)
+    are refused by name, as usage errors, before any process joins."""
     paths, _ = data
     argv = _cli_argv(paths, str(tmp_path))
     if extra[0] in tcli.FAMILIES:
         argv[0], extra = extra[0], extra[1:]
-    error = (ValueError if extra[0] in ("--coordinator", "--num-processes")
+    error = (ValueError if extra[0] in ("--coordinator", "--num-processes",
+                                        "--tp", "--sequence-parallel")
              else NotImplementedError)
     with pytest.raises(error, match=re.escape(extra[0])):
         tcli.main(argv + extra)
