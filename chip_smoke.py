@@ -6,8 +6,9 @@ FSD++, FSDv2 training on predicted occupancy (W8), the W1 occupancy
 annotator, the data-prep CLI and augmented multi-sweep training, CTRL with
 its tracklet segmentor, SIR remat, the tracklet loader's worker processes,
 VoteNet on indoor scenes and SST on nuScenes frames, checkpoint surgery,
-the serving export, and data-parallel training and sharded evaluation, on
-one CUDA card.
+the serving export, data-parallel training and sharded evaluation, model
+parallelism, CenterPoint's column-dense encoder layout and OcOccNet's flat
+and stacked optimizer layouts, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -304,7 +305,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
     Each run of 41-44 is a process group of its own, killed at
     ``RANK_WAIT`` s, and counts 0 window-attention launches on every
     rank.
-45. Print the kernels' JSON line (the bf16 and the float32 tensor-core
+45. CenterPoint with ``encoder_layout="column"`` at the full width of
+    ``CenterPointConfig()`` on phase 12's dense and sparse frames and a
+    near frame within every budget (``CP_NEAR``), float32 and the config's
+    bf16 activations with remat: the occupied columns per stage against
+    their budgets, ms per frame of each layout and dtype (the gather
+    layout's beside them) and the peak memory; float32, TF32 off: the
+    column head maps against the gather layout's on the same weights on
+    every frame within every budget, and the dense frame card against CPU,
+    at phase 13's bar.
+46. Column-layout CenterPoint training through ``train_detector`` on
+    phase 5's frames, ``CP_COLUMN_STEPS`` steps in bf16 and in float32:
+    finite losses, ms/step and the peak memory beside phase 14's; one
+    float32 column step card against CPU at phase 15's bars, the card's
+    ReLU routes fed to the CPU (at most ``CP_ROUTE_FLIPS`` of them differ
+    from the CPU's own).
+47. OcOccNet's float32 step at phase 38's config and batch with the flat
+    and the stacked optimizer layouts (``create_train_state(flat_opt= |
+    stacked_opt=)``): every step's losses and ``grad_norm`` and the
+    parameters after the first within phase 38's bars of its plain step;
+    ms per step and the kernels per step and per clip and update
+    (``torch.profiler``), the tree optimizer's beside them. Phases 45-47
+    count 0 window-attention launches.
+48. Print the kernels' JSON line (the bf16 and the float32 tensor-core
     kernels, each level apart; launches of the bf16 frames and bf16
     training, and of the float32 frame, float32, augmented, nuScenes and
     data-parallel training (both ranks) and the SST evaluations), then as
@@ -353,6 +376,8 @@ from objectcentricocccompletion_torch.evalx.detector_eval import (
     make_predict_fn)
 from objectcentricocccompletion_torch.evalx.submission import read_submission
 from objectcentricocccompletion_torch.evalx.waymo_bin import read_bin
+from objectcentricocccompletion_torch.models.centerpoint import (
+    CenterPointConfig)
 from objectcentricocccompletion_torch.models.fsd import FSD, Grouping
 from objectcentricocccompletion_torch.models.fsd_two_stage import (
     two_stage_loss)
@@ -378,8 +403,9 @@ from objectcentricocccompletion_torch.tools import (
     publish_model as publish_cli)
 from objectcentricocccompletion_torch.training import surgery
 from objectcentricocccompletion_torch.training.detector_trainer import (
-    FrameBatch, make_detector_train_step)
-from objectcentricocccompletion_torch.training.optim import make_optimizer
+    FrameBatch, make_detector_train_step, train_detector)
+from objectcentricocccompletion_torch.training.optim import (
+    BufferAdamW, clip_grad_global_norm_, make_optimizer)
 from objectcentricocccompletion_torch.training.seq_trainer import (
     SeqWindow, make_seq_train_step)
 from objectcentricocccompletion_torch.training.trainer import (
@@ -638,6 +664,21 @@ DDP_SST_FRAMES = 2
 OCC_LOSSES = ("loss", "loss_rcnn_cls", "loss_rcnn_bbox", "loss_rcnn_occ")
 # timed batches of a served bundle
 SERVE_TIMED = 10
+# 45: CenterPoint's column layout. Beside phase 12's dense and sparse
+# frames, whose uniform clutter overflows the later stages' column budgets
+# (and the gather layout's), a near frame that fits every budget of both
+# layouts: 20,000 points of synth_frame seed 2 with x and y scaled by 0.1
+# (within 7.5 m of the sensor). The column layout against the gather one
+# and the card against the CPU at phase 13's bar, CP_CPU_RTOL
+CP_NEAR = (20000, 2, 0.1)
+CP_COLUMN_TIMED = 3             # timed frames per layout, dtype and frame
+# 46: column-layout training steps through train_detector, each dtype;
+# the float32 step card against CPU with the card's ReLU routes fed: the
+# fed elements that differ from the CPU's own route, at most this share
+CP_COLUMN_STEPS = 4
+CP_ROUTE_FLIPS = 1e-5
+# 47: traced steps and optimizer calls for the launch counts
+OPT_TRACE_CALLS = 2
 
 
 def log(msg):
@@ -1857,30 +1898,57 @@ def phase_cp_training(dev, frames_dir, work):
         f"{[round(x, 3) for x in times]}), peak memory {peak:.3f} GiB, "
         f"window-attention launches 0, {len(init) - len(same)} of "
         f"{len(init)} parameter tensors moved; card {card_info()}")
+    return statistics.median(timed), peak
 
 
-def phase_cp_fp32_step(dev):
+def phase_cp_fp32_step(dev, layout="gather"):
     """One float32 training step (TF32 off, lr ``CP_STEP_LR``) of one dense
-    frame at full width on the card and on the CPU from the same weights:
-    the loss dict, every clipped gradient and every parameter after the
-    update."""
+    frame at full width on the card and on the CPU from the same weights,
+    the encoder in ``layout`` (float32 activations): the loss dict, every
+    clipped gradient and every parameter after the update. In the column
+    layout the card's ReLU routes are fed to the CPU (``ops/routes.py``;
+    unfed, ReLU inputs within a rounding step of 0 sent 77 gradients up to
+    12 times over their bars, PERF.md section 6), and its residual blocks
+    are not recomputed (a recomputation would record the routes twice; the
+    training phase runs remat, the CPU tests hold it to the JAX package)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    routed = layout == "column"
     res = []
-    for where in (dev, torch.device("cpu")):
-        model = bench.build_centerpoint(device=where, seed=0).train()
+    for card, where in ((True, dev), (False, torch.device("cpu"))):
+        model = bench.build_centerpoint(device=where, seed=0, layout=layout,
+                                        dtype="float32").train()
+        model.encoder.remat_blocks = not routed
         batch = bench.train_batch(model.cfg, where, 150000, seed=0)
         init = {n: p.detach().cpu().clone()
                 for n, p in model.named_parameters()}
         optimizer, schedule = make_optimizer(model.named_parameters(),
                                              CP_STEP_LR, 100)
-        metrics = make_detector_train_step(model, optimizer, schedule)(
-            0, batch)
+        step_fn = make_detector_train_step(model, optimizer, schedule)
+        if not routed:
+            metrics = step_fn(0, batch)
+        elif card:
+            with Routes() as routes:
+                metrics = step_fn(0, batch)
+        else:
+            with Routes([m.cpu() for m in routes.masks]) as fed:
+                metrics = step_fn(0, batch)
         res.append(({k: float(v) for k, v in metrics.items()},
                     {n: (p.detach().cpu(), p.grad.cpu())
                      for n, p in model.named_parameters()}))
-    no_kernel_launches("centerpoint fp32 step")
-    check_step_card_vs_cpu("centerpoint fp32 step", res, init, schedule(0))
+        del model, optimizer, step_fn
+    no_kernel_launches(f"centerpoint fp32 step ({layout})")
+    if routed:
+        log(f"centerpoint fp32 step ({layout} layout): the card's "
+            f"{len(routes.masks)} ReLU routes' {fed.fed} elements fed to the "
+            f"CPU, {fed.flips} differ from the CPU's own (bar "
+            f"{CP_ROUTE_FLIPS:.0e} of those fed; (call, op, shape, count): "
+            f"{fed.flipped})")
+        if not fed.flips <= CP_ROUTE_FLIPS * fed.fed:
+            raise AssertionError(f"centerpoint fp32 step: {fed.flips} of "
+                                 f"{fed.fed} route elements differ")
+    check_step_card_vs_cpu(f"centerpoint fp32 step ({layout} layout)", res,
+                           init, schedule(0))
 
 
 def phase_cp_eval(dev, frames_dir, work):
@@ -3508,20 +3576,27 @@ def occ_ddp_config():
                                base_lr=OCC_STEP_LR)
 
 
-def ococc_ddp_run(dev, batch, plain=False, mesh=None, **layout_kw):
+def ococc_ddp_run(dev, batch, plain=False, mesh=None, opt="tree",
+                  trace=False, **layout_kw):
     """``DDP_STEPS`` float32 steps of phase 38's config from the seeded init
     on ``batch`` (under the process group that is up, if any; ``mesh`` and
-    ``layout_kw``: ``make_train_step``'s model-parallel layout): the first
+    ``layout_kw``: ``make_train_step``'s model-parallel layout; ``opt``:
+    the optimizer layout, ``tree``, ``flat`` or ``stacked``): the first
     step's metrics and parameters gathered whole (``plain``: and clipped
-    gradients), this rank's parameter, gradient and AdamW moment bytes
-    after it, every step's ms and the peak memory."""
+    gradients), every step's metrics, this rank's parameter, gradient and
+    AdamW moment bytes after it, every step's ms and the peak memory;
+    ``trace``: then the kernels per step and per clip and update
+    (``torch.profiler``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.reset_peak_memory_stats(dev)
-    model, optimizer, schedule = create_train_state(occ_ddp_config(), 100,
-                                                    dev, 0)
-    step_fn = make_train_step(model, optimizer, schedule, mesh=mesh,
-                              **layout_kw)
+    state = create_train_state(occ_ddp_config(), 100, dev, 0,
+                               flat_opt=opt == "flat",
+                               stacked_opt=opt == "stacked")
+    model, optimizer, schedule = state[:3]
+    step_fn = make_train_step(
+        model, optimizer, schedule, mesh=mesh, flat_opt=opt == "flat",
+        stacked_spec=state[3] if opt == "stacked" else None, **layout_kw)
     layout = step_fn.layout
 
     def whole(name, t):
@@ -3529,31 +3604,47 @@ def ococc_ddp_run(dev, batch, plain=False, mesh=None, **layout_kw):
         t = t if d is None else cc.all_gather_cat(t, d, layout.group)
         return t.detach().cpu().clone()
 
-    times = []
+    times, steps = [], []
     for k in range(DDP_STEPS):
         torch.cuda.synchronize()
         t = time.perf_counter()
         metrics = step_fn(k, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
+        steps.append({n: float(v) for n, v in metrics.items()})
         if k == 0:
             named = dict(model.named_parameters())
-            res = dict(metrics={n: float(v) for n, v in metrics.items()},
+            moments = ([*optimizer.exp_avg.values(),
+                        *optimizer.exp_avg_sq.values()]
+                       if isinstance(optimizer, BufferAdamW) else
+                       [v for st in optimizer.state.values()
+                        for k2, v in st.items() if k2.startswith("exp_avg")])
+            res = dict(metrics=steps[0],
                        params={n: whole(n, p) for n, p in named.items()},
                        lr=schedule(0), bytes=dict(
                            params=sum(p.numel() * 4 for p in named.values()),
                            grads=sum(p.grad.numel() * 4
                                      for p in named.values()),
-                           moments=sum(v.numel() * 4
-                                       for st in optimizer.state.values()
-                                       for k2, v in st.items()
-                                       if k2.startswith("exp_avg"))),
+                           moments=sum(v.numel() * 4 for v in moments)),
                        sharded=len(layout.dims), summed=len(layout.summed))
             if plain:
                 res["grads"] = {n: p.grad.cpu()
                                 for n, p in model.named_parameters()}
-    res.update(ms=times,
+    res.update(ms=times, steps=steps,
                peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    if trace:
+        # the step, then its clip and update alone on the last gradients
+        # (the parameters move on; nothing is compared after this)
+        params = list(model.parameters())
+        update = ((lambda: optimizer.step(schedule(DDP_STEPS)))
+                  if isinstance(optimizer, BufferAdamW) else
+                  (lambda: (clip_grad_global_norm_(
+                      params, occ_ddp_config().grad_clip_norm),
+                      optimizer.step())))
+        res["launches"] = device_trace(
+            lambda: step_fn(DDP_STEPS, batch), OPT_TRACE_CALLS)[0]
+        res["update_launches"], res["update_ms"], _ = device_trace(
+            update, OPT_TRACE_CALLS)
     if layout.fsdp:
         res["collectives"] = fsdp_collective_ms(model, layout)
     return res
@@ -4148,6 +4239,195 @@ def phase_mp_cli(dev, occ_dir):
                            dev)
 
 
+def cp_near_frame(dev):
+    """``CP_NEAR``'s frame: within every budget of both encoder layouts."""
+    n, seed, scale = CP_NEAR
+    pts, msk = bench.frame_tensors(CenterPointConfig(), dev, n, seed)
+    pts[:, :2] *= scale
+    return pts, msk
+
+
+def within_budgets(rows):
+    return all(r["occupied"] <= r["budget"] for r in rows)
+
+
+def phase_cp_column(dev):
+    """45. CenterPoint with ``encoder_layout="column"`` at the full width of
+    ``CenterPointConfig()`` on phase 12's dense and sparse frames and the
+    near frame, float32 and the config's default (bf16 activations, remat
+    on): the occupied columns per stage against their budgets, ms per frame
+    of each layout and dtype and the peak memory; float32 with TF32 off:
+    the column head maps against the gather layout's on the same weights on
+    every frame within every budget, and the dense frame on the card
+    against the port on the CPU, at phase 13's bar. 0 window-attention
+    launches."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = CenterPointConfig()
+    frames = {"dense": bench.frame_tensors(cfg, dev, 150000, seed=0),
+              "sparse": bench.frame_tensors(cfg, dev, 20000, seed=1),
+              "near": cp_near_frame(dev)}
+    card = card_info()
+    fits = {}
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    for layout, dtype in (("gather", None), ("column", "float32"),
+                          ("column", None)):
+        model = bench.build_centerpoint(dev, 0, layout, dtype)
+        predict = make_predict_fn(model, "centerpoint")
+        what = f"centerpoint {layout} ({dtype or cfg.encoder_dtype} " \
+               f"activations)" if layout == "column" else \
+               "centerpoint gather (float32)"
+        for name, (pts, msk) in frames.items():
+            rows = model.voxel_occupancy(pts, msk)
+            fits[name] = fits.get(name, True) and within_budgets(rows)
+            predict(pts, msk)                                  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            out = predict(pts, msk)
+            shapes = [tuple(x.shape) for x in out]
+            if shapes != [(500, 9), (500,), (500,), (500,)] or not all(
+                    torch.isfinite(x.float()).all() for x in out):
+                raise AssertionError(f"{what} predict: shapes {shapes} or "
+                                     f"values not finite")
+            times = bench.time_frames(predict, pts, msk, CP_COLUMN_TIMED,
+                                      warmup=0)
+            log(f"{what} frame {name}: {statistics.median(times):.3f} "
+                f"ms/frame (median of {CP_COLUMN_TIMED}: "
+                f"{[round(t, 3) for t in times]}), peak memory "
+                f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB; "
+                f"occupied/budget {voxel_line(rows)}; card {card}")
+        del model, predict
+        torch.cuda.empty_cache()
+    no_kernel_launches("centerpoint column inference")
+    torch.backends.cudnn.allow_tf32 = False
+    gather = bench.build_centerpoint(dev, 0)
+    column = bench.build_centerpoint(dev, 0, "column", "float32")
+    cpu = bench.build_centerpoint("cpu", 0, "column", "float32")
+    same = all(torch.equal(p, q) for p, q in zip(
+        gather.state_dict().values(), column.state_dict().values()))
+    if not same or gather.state_dict().keys() != column.state_dict().keys():
+        raise AssertionError("centerpoint: the two layouts' seeded weights "
+                             "differ")
+    compared = [n for n, ok in fits.items() if ok]
+    log(f"centerpoint column vs gather (float32, TF32 off, the same "
+        f"weights): frames within every budget {compared}, overflowing "
+        f"{[n for n, ok in fits.items() if not ok]} (not compared)")
+    if "near" not in compared:
+        raise AssertionError("centerpoint: the near frame overflows a "
+                             "budget")
+    with torch.inference_mode():
+        for name in compared:
+            pts, msk = frames[name]
+            compare_outputs(f"centerpoint frame {name} column vs gather, "
+                            f"card", column(pts, msk),
+                            {k: v.cpu() for k, v in gather(pts, msk).items()},
+                            CP_HEADS)
+        pts, msk = frames["dense"]
+        compare_outputs("centerpoint column frame dense, card vs CPU",
+                        column(pts, msk), cpu(pts.cpu(), msk.cpu()),
+                        CP_HEADS)
+    no_kernel_launches("centerpoint column card vs CPU")
+
+
+def phase_cp_column_training(dev, frames_dir, work, gather_step):
+    """46. Column-layout CenterPoint training through
+    ``training/detector_trainer.py::train_detector`` on phase 5's frames,
+    ``CP_COLUMN_STEPS`` steps in bf16 (the config's default) and float32
+    (the CLI's TF32 settings): finite losses, ms/step and the peak memory
+    beside phase 14's gather numbers; then one float32 step card against
+    CPU at phase 15's bars."""
+    infos = os.path.join(frames_dir, "infos.pkl")
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_info()
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    for dtype in ("bfloat16", "float32"):
+        stamps = []
+
+        def hook(step, metrics):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+
+        model = bench.build_centerpoint(dev, 0, "column", dtype).train()
+        ds = train_cli.frame_dataset("waymo", infos, frames_dir)
+        out = os.path.join(work, f"column_{dtype}")
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        done = train_detector(model, ds, out, CP_COLUMN_STEPS,
+                              log_interval=1, device=dev, hooks=[hook])
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        rows = [json.loads(line) for line in
+                open(os.path.join(out, "metrics.jsonl"))]
+        keys = ("loss", "loss_heatmap", "loss_bbox", "grad_norm")
+        if done != CP_COLUMN_STEPS or len(rows) != CP_COLUMN_STEPS or not all(
+                abs(r[k]) < float("inf") for r in rows for k in keys):
+            raise AssertionError(f"centerpoint column {dtype} training: "
+                                 f"{done} steps, metrics {rows}")
+        times = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+        timed = times[TRAIN_TIMED_FROM - 1:]
+        log(f"centerpoint column training ({dtype} activations): "
+            f"{CP_COLUMN_STEPS} steps, losses "
+            f"{[round(r['loss'], 4) for r in rows]}, "
+            f"{statistics.median(timed):.3f} ms/step (median of steps "
+            f"{TRAIN_TIMED_FROM}-{CP_COLUMN_STEPS}; all "
+            f"{[round(x, 3) for x in times]}), peak memory {peak:.3f} GiB; "
+            f"phase 14's gather layout (float32, the CLI): "
+            f"{gather_step[0]:.3f} ms/step, {gather_step[1]:.3f} GiB; "
+            f"card {card}")
+        del model
+        torch.cuda.empty_cache()
+    no_kernel_launches("centerpoint column training")
+    phase_cp_fp32_step(dev, "column")
+
+
+def phase_opt_layouts(dev, plain):
+    """47. OcOccNet's float32 step at phase 38's config and batch with the
+    flat and the stacked optimizer layouts: ``DDP_STEPS`` steps each, every
+    step's losses and ``grad_norm`` and the parameters after the first at
+    phase 38's bars of its plain (tree) step; ms per step, and per layout
+    the kernels per step and per clip and update (``torch.profiler``,
+    the tree's beside them). 0 window-attention launches."""
+    batch = synthetic_batch(occ_ddp_config(), batch_size=DDP_OCC_BATCH,
+                            seed=0)
+    card = card_info()
+    wa.LAUNCHES.clear()
+    wa.BWD_LAUNCHES.clear()
+    runs = {}
+    for opt in ("tree", "flat", "stacked"):
+        torch.cuda.empty_cache()
+        runs[opt] = res = ococc_ddp_run(dev, batch, opt=opt, trace=True)
+        compare_occ_steps(f"ococcnet {opt} optimizer vs phase 38's plain "
+                          f"step", res, plain)
+        for k, (got, ref) in enumerate(zip(res["steps"], plain["steps"])):
+            for key, v in ref.items():
+                tol = (OCC_STEP_GRAD_NORM_RTOL * v if key == "grad_norm"
+                       else OCC_STEP_LOSS_ATOL)
+                if not abs(got[key] - v) <= tol:
+                    raise AssertionError(f"ococcnet {opt} optimizer step "
+                                         f"{k + 1}: {key} {got[key]} vs {v}")
+        log(f"ococcnet {opt} optimizer: losses "
+            f"{[round(r['loss'], 6) for r in res['steps']]} vs plain "
+            f"{[round(r['loss'], 6) for r in plain['steps']]}, grad_norm "
+            f"{[round(r['grad_norm'], 6) for r in res['steps']]} vs "
+            f"{[round(r['grad_norm'], 6) for r in plain['steps']]}; "
+            f"{statistics.median(res['ms'][1:]):.3f} ms/step (steps 2-"
+            f"{DDP_STEPS}; all {[round(x, 3) for x in res['ms']]}), peak "
+            f"{res['peak_gib']:.3f} GiB; {res['launches']:.0f} kernels per "
+            f"step, the clip and update {res['update_launches']:.0f} of "
+            f"them ({res['update_ms']:.3f} ms of device time); card {card}")
+    no_kernel_launches("ococcnet optimizer layouts")
+    for opt in ("flat", "stacked"):
+        log(f"ococcnet {opt} optimizer against the tree's: "
+            f"{runs['tree']['launches'] - runs[opt]['launches']:.0f} "
+            f"kernels per step saved, clip and update "
+            f"{runs['tree']['update_launches']:.0f} -> "
+            f"{runs[opt]['update_launches']:.0f} kernels, "
+            f"{runs['tree']['update_ms']:.3f} -> "
+            f"{runs[opt]['update_ms']:.3f} ms")
+
+
 def phase_surgery(dev, occ_dir, fsd_ckpt):
     """36. Surgery: publish phase 8's checkpoint twice (the same
     ``-{hash8}`` name; the optimizer state gone) and hold its predict on
@@ -4416,12 +4696,14 @@ def main():
         log(f"phase sst evaluation: {time.perf_counter() - t:.1f} s")
         cp_frames = os.path.join(sst_dir, "frames")
         cp_work = os.path.join(keep, "centerpoint")
+        cp_step = []
         for name, run in (
                 ("centerpoint inference", lambda: phase_centerpoint(dev)),
                 ("centerpoint card vs CPU",
                  lambda: phase_cp_card_vs_cpu(dev)),
                 ("centerpoint training",
-                 lambda: phase_cp_training(dev, cp_frames, cp_work)),
+                 lambda: cp_step.extend(
+                     phase_cp_training(dev, cp_frames, cp_work))),
                 ("centerpoint fp32 step", lambda: phase_cp_fp32_step(dev)),
                 ("centerpoint evaluation",
                  lambda: phase_cp_eval(dev, cp_frames, cp_work))):
@@ -4498,10 +4780,20 @@ def main():
         phase_model_parallel(dev, plain)
         log(f"phase 41-43 model parallelism: "
             f"{time.perf_counter() - t:.1f} s")
-        del plain
         t = time.perf_counter()
         phase_mp_cli(dev, occ_dir)
         log(f"phase 44 model-parallel cli: {time.perf_counter() - t:.1f} s")
+        for name, run in (
+                ("45 centerpoint column layout", lambda: phase_cp_column(dev)),
+                ("46 centerpoint column training",
+                 lambda: phase_cp_column_training(dev, cp_frames, cp_work,
+                                                  cp_step)),
+                ("47 optimizer layouts",
+                 lambda: phase_opt_layouts(dev, plain))):
+            t = time.perf_counter()
+            run()
+            log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+        del plain
 
     # launches on the model's paths: bf16 inference and training run the
     # bf16 kernels, the float32 frame, float32, augmented, nuScenes and

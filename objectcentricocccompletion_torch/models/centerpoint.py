@@ -4,7 +4,11 @@ voxelization -> DynamicVFE -> sparse 3D encoder -> dense BEV -> SECOND +
 FPN -> CenterHead. Configured after the reference's
 ``configs/centerpoint/cp_voxel_full_6e_car_occ.py``.
 
-One frame's padded point buffer per call; float32 end to end.
+One frame's padded point buffer per call. float32 end to end but for the
+encoder's column layout (``encoder_layout="column"``), whose activations
+are in ``encoder_dtype`` (bf16 by default; the convolutions sum in float32)
+and whose residual blocks are recomputed in the backward
+(``encoder_remat``).
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ class CenterPointConfig:
     vfe_channels: Sequence[int] = (16, 16)
     num_classes: int = 1
     out_size_factor: int = 8
-    encoder_layout: str = "gather"   # only 'gather' is ported
+    encoder_layout: str = "gather"   # 'gather' | 'column' (same parameters)
     # the column layout's options (its activation dtype and remat); the
     # gather layout computes in float32 whatever they say, in both packages
     encoder_dtype: str = "bfloat16"
@@ -83,7 +87,10 @@ class DynamicCenterPoint(nn.Module):
             grid_shape=c.grid_shape,
             max_voxels_per_stage=(c.max_voxels, c.max_voxels,
                                   c.max_voxels // 2, c.max_voxels // 4),
-            layout=c.encoder_layout)
+            max_columns_per_stage=(c.max_voxels, c.max_voxels // 2,
+                                   c.max_voxels // 4, c.max_voxels // 8),
+            layout=c.encoder_layout, dtype=c.encoder_dtype,
+            remat_blocks=c.encoder_remat)
         # z after three stride-2 downsamples and conv_out's (3, 1, 1) / 2
         gz = c.grid_shape[2]
         for _ in range(3):
@@ -141,9 +148,10 @@ class DynamicCenterPoint(nn.Module):
     def voxel_occupancy(self, points: torch.Tensor, mask: torch.Tensor
                         ) -> list[dict]:
         """Occupied voxels at each stage before its budget cuts it, beside
-        the budget: the voxelized input, the encoder's three downsampled
-        stages and conv_out (host ints). Both packages drop what exceeds a
-        budget silently."""
+        the budget: the voxelized input, then the encoder's three downsampled
+        stages and conv_out (gather layout) or its columns per stage (column
+        layout) (host ints). Both packages drop what exceeds a budget
+        silently."""
         vres = self.voxelize(points, mask)
         return ([{"stage": "voxelize", "occupied": int(vres.num_voxels),
                   "budget": self.cfg.max_voxels}]

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops.routes import relu
 from .second import _gn, group_norm
 
 HEAD_CONVS = 2  # convolutions per head branch (the last one biased)
@@ -57,13 +58,13 @@ class SeparateHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> dict:
         """x [1, C, H, W] -> name -> [1, c, H, W]."""
-        x = torch.relu(group_norm(self.GroupNorm_0, self.shared(x)))
+        x = relu(group_norm(self.GroupNorm_0, self.shared(x)))
         out, k = {}, 1
         for name in self.head_dims:
             h = x
             for i in range(HEAD_CONVS - 1):
                 h = getattr(self, f"{name}_conv{i}")(h)
-                h = torch.relu(group_norm(getattr(self, f"GroupNorm_{k}"), h))
+                h = relu(group_norm(getattr(self, f"GroupNorm_{k}"), h))
                 k += 1
             out[name] = getattr(self, f"{name}_out")(h)
         return out

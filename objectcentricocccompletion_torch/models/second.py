@@ -18,6 +18,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops.routes import relu
+
 GN_GROUPS = 16
 GN_EPS = 1e-3
 # the W2 config's widths: SECOND's two stages (channels, extra layers,
@@ -54,7 +56,7 @@ class SECOND(nn.Module):
         for i, (_, n, _) in enumerate(SECOND_STAGES):
             for j in range(n + 1):
                 x = getattr(self, f"stage{i}_conv{j}")(x)
-                x = torch.relu(group_norm(getattr(self, f"GroupNorm_{k}"), x))
+                x = relu(group_norm(getattr(self, f"GroupNorm_{k}"), x))
                 k += 1
             outs.append(x)
         return outs
@@ -73,7 +75,7 @@ class SECONDFPN(nn.Module):
             self.add_module(f"GroupNorm_{i}", _gn(c))
 
     def forward(self, feats: list[torch.Tensor]) -> torch.Tensor:
-        ups = [torch.relu(group_norm(getattr(self, f"GroupNorm_{i}"),
+        ups = [relu(group_norm(getattr(self, f"GroupNorm_{i}"),
                                      getattr(self, f"deblock{i}")(x)))
                for i, x in enumerate(feats)]
         return torch.cat(ups, 1)

@@ -1,5 +1,6 @@
 """Sparse 3D encoder, CenterPoint's middle encoder (counterpart of the JAX
-package's ``models/sparse_encoder.py``, its gather layout).
+package's ``models/sparse_encoder.py``), on two layouts that share one
+parameter tree:
 
     conv_input: SubM(k3) base -> base
     stage i (i = 0..3): [SparseConv k3 s2 p1 downsample when i > 0] +
@@ -7,14 +8,20 @@ package's ``models/sparse_encoder.py``, its gather layout).
     conv_out:  SparseConv (3, 1, 1) stride (2, 1, 1) compressing z
     dense:     scatter to the BEV map [1, D * C, gx, gy], channel c * D + z
 
-The convolutions are the gather-GEMMs of ``ops/sparse_conv.py``; voxel
-budgets per stage are static and the downsampled lattices beyond them drop
-silently, as in the JAX package (``voxel_occupancy`` reports how full each
-runs). LayerNorm (eps 1e-3) stands in for BN1d. The JAX package's column
-layout (``ops/column_conv.py``, a measured negative result there) is not
-ported. Its ``dtype`` and ``remat_blocks`` options configure only that
-layout: the gather layout computes in float32 whatever they say, in both
-packages.
+- ``layout="gather"``: the gather-GEMMs of ``ops/sparse_conv.py`` (27 row
+  gathers per voxel and convolution), float32 whatever ``dtype`` and
+  ``remat_blocks`` say, in both packages;
+- ``layout="column"``: ``ops/column_conv.py`` (9 whole-column gathers per
+  output column, z dense), its activations in ``dtype`` (the convolutions
+  sum in float32; LayerNorm and the BEV map stay float32), each residual
+  block recomputed in the backward under ``remat_blocks``.
+
+Budgets per stage are static and what exceeds them drops silently, as in
+the JAX package: voxels in the gather layout (``voxel_occupancy`` reports
+how full each runs), columns in the column layout
+(``max_columns_per_stage``, by default the voxel budgets). A frame that
+overflows a column budget gives the two layouts different results, in both
+packages. LayerNorm (eps 1e-3) stands in for BN1d.
 
 Module and parameter names are the flax ones: sparse kernels are
 ``[K, Cin, Cout]`` parameters named ``kernel``, ``conv2_kernel``,
@@ -27,7 +34,9 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..ops import column_conv as cc
 from ..ops import sparse_conv as sc
 from ..ops.routes import relu
 from .layers import LN_EPS, dense, layer_norm
@@ -49,6 +58,18 @@ class GatherCtx(NamedTuple):
 
     def mask(self, x: torch.Tensor) -> torch.Tensor:
         return torch.where(self.valid[:, None], x, 0.0)
+
+
+class ColumnCtx(NamedTuple):
+    """Connectivity of one stage in the column-dense layout."""
+    nbrs: torch.Tensor    # [9, N] column slots
+    occ: torch.Tensor     # [N, gz]
+
+    def conv(self, feats: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return cc.conv3x3x3(feats, self.nbrs, w, self.occ)
+
+    def mask(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(self.occ[..., None], x, 0.0)
 
 
 def _kernel(k: int, cin: int, cout: int) -> nn.Parameter:
@@ -73,9 +94,9 @@ class SubMConv(nn.Module):
         self.kernel = _kernel(27, in_channels, out_channels)
         self.LayerNorm_0 = nn.LayerNorm(out_channels, eps=LN_EPS)
 
-    def forward(self, feats: torch.Tensor, ctx: GatherCtx) -> torch.Tensor:
+    def forward(self, feats: torch.Tensor, ctx) -> torch.Tensor:
         x = ctx.conv(feats.to(self.dtype), self.kernel)
-        return _norm_act(self.LayerNorm_0, x, ctx.valid).to(self.dtype)
+        return ctx.mask(relu(layer_norm(self.LayerNorm_0, x))).to(self.dtype)
 
 
 class SparseBasicBlock(nn.Module):
@@ -93,7 +114,7 @@ class SparseBasicBlock(nn.Module):
         self.proj = (nn.Linear(in_channels, channels, bias=False)
                      if in_channels != channels else None)
 
-    def forward(self, feats: torch.Tensor, ctx: GatherCtx) -> torch.Tensor:
+    def forward(self, feats: torch.Tensor, ctx) -> torch.Tensor:
         x = self.conv1(feats, ctx)
         x = layer_norm(self.norm2, ctx.conv(x, self.conv2_kernel))
         identity = (feats if self.proj is None
@@ -108,17 +129,25 @@ class SparseEncoder(nn.Module):
                  grid_shape: Sequence[int] = (1504, 1504, 41),
                  max_voxels_per_stage: Sequence[int] = (60000, 60000, 40000,
                                                         20000),
-                 layout: str = "gather"):
+                 layout: str = "gather",
+                 max_columns_per_stage: Sequence[int] | None = None,
+                 remat_blocks: bool = True,
+                 dtype: torch.dtype | str = torch.float32):
         super().__init__()
-        if layout != "gather":
-            raise NotImplementedError(
-                f"the {layout!r} layout of SparseEncoder (ops/column_conv.py)"
-                " is not ported; use layout='gather'")
+        if layout not in ("gather", "column"):
+            raise ValueError(f"unknown SparseEncoder layout {layout!r}")
+        self.layout = layout
+        self.max_columns_per_stage = tuple(max_columns_per_stage or
+                                           max_voxels_per_stage)
+        self.remat_blocks = remat_blocks
+        dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+        # the gather layout computes in float32 whatever dtype says
+        self.dtype = dt if layout == "column" else torch.float32
         self.output_channels = output_channels
         self.encoder_channels = tuple(tuple(s) for s in encoder_channels)
         self.grid_shape = tuple(int(g) for g in grid_shape)
         self.max_voxels_per_stage = tuple(max_voxels_per_stage)
-        self.conv_input = SubMConv(base_channels, base_channels)
+        self.conv_input = SubMConv(base_channels, base_channels, self.dtype)
         c = base_channels
         for i, stage in enumerate(self.encoder_channels):
             if i > 0:
@@ -129,7 +158,7 @@ class SparseEncoder(nn.Module):
                 c = stage[0]
             for j, cj in enumerate(stage):
                 self.add_module(f"stage{i}_block{j}",
-                                SparseBasicBlock(c, cj))
+                                SparseBasicBlock(c, cj, self.dtype))
                 c = cj
         self.conv_out_kernel = _kernel(3, c, output_channels)
         self.conv_out_norm = nn.LayerNorm(output_channels, eps=LN_EPS)
@@ -156,6 +185,8 @@ class SparseEncoder(nn.Module):
                 valid: torch.Tensor) -> torch.Tensor:
         """voxel_feats [V0, C]; coords [V0, 3] (x, y, z); valid [V0]. Returns
         the dense BEV map [1, D_out * output_channels, gx / 8, gy / 8]."""
+        if self.layout == "column":
+            return self._forward_column(voxel_feats, coords, valid)
         stages = self.lattices(coords, valid)
         x = voxel_feats
         for i, stage in enumerate(self.encoder_channels):
@@ -180,12 +211,49 @@ class SparseEncoder(nn.Module):
         return dense.permute(3, 2, 0, 1).reshape(
             1, self.output_channels * gz, gx, gy)
 
+    def _forward_column(self, voxel_feats, coords, valid):
+        budgets = self.max_columns_per_stage
+        dt = self.dtype
+        grid, col_of = cc.build_columns(coords, valid, self.grid_shape,
+                                        budgets[0])
+        x = cc.scatter_voxel_feats(voxel_feats.to(dt), coords, col_of,
+                                   budgets[0], self.grid_shape[2])
+        ctx = ColumnCtx(cc.neighbor_columns(grid), grid.occ)
+        x = self.conv_input(x, ctx)
+        for i, stage in enumerate(self.encoder_channels):
+            if i > 0:
+                new_grid, s_nbrs = cc.downsample_columns(grid, budgets[i])
+                x = cc.conv3x3x3(x, s_nbrs, getattr(self, f"down{i}_kernel"),
+                                 new_grid.occ, stride=2)
+                x = torch.where(new_grid.occ[..., None], relu(layer_norm(
+                    getattr(self, f"down{i}_norm"), x)), 0.0).to(dt)
+                grid = new_grid
+                ctx = ColumnCtx(cc.neighbor_columns(grid), grid.occ)
+            for j in range(len(stage)):
+                block = getattr(self, f"stage{i}_block{j}")
+                x = (checkpoint(block, x, ctx, use_reentrant=False)
+                     if self.remat_blocks else block(x, ctx))
+        x, out_occ = cc.zcompress(x, grid.occ, self.conv_out_kernel)
+        x = torch.where(out_occ[..., None],
+                        relu(layer_norm(self.conv_out_norm, x)), 0.0)
+        gx, gy, gz = grid.grid_shape
+        bev = cc.columns_to_bev(x, grid._replace(
+            occ=out_occ, grid_shape=(gx, gy, out_occ.shape[1])))
+        return bev.permute(2, 0, 1).unsqueeze(0).contiguous()
+
     @torch.no_grad()
     def voxel_occupancy(self, coords: torch.Tensor, valid: torch.Tensor
                         ) -> list[dict]:
         """Occupied voxels of each downsampled stage's lattice and of
-        conv_out's before the budget cuts them, beside the budget (host
-        ints; synchronises)."""
+        conv_out's before the budget cuts them, beside the budget; in the
+        column layout the occupied columns of every stage against the
+        column budgets (host ints; synchronises)."""
+        if self.layout == "column":
+            counts = cc.column_counts(coords, valid, self.grid_shape,
+                                      self.max_columns_per_stage)
+            return [{"stage": f"columns {i}", "occupied": n, "budget": b}
+                    for i, (n, b) in enumerate(
+                        zip(counts, self.max_columns_per_stage))]
         rows, prev = [], None
         for i, (grid, extra) in enumerate(self.lattices(coords, valid)):
             if isinstance(grid, str):

@@ -45,14 +45,24 @@ layout is the JAX package's ``_state_shardings`` ladder, FSDP before TP:
 
 The global norm counts each sharded gradient once (its squares summed over
 its group), and checkpoints hold whole tensors (:meth:`Layout.full_state`).
-The flat and stacked optimizers (the JAX package's ways around the TPU's
-launch overhead) are not ported.
+
+The flat and stacked optimizer layouts (``create_train_state(flat_opt=True
+| stacked_opt=True)``, ``make_train_step(flat_opt=, stacked_spec=)``) hold
+every parameter in a few contiguous buffers: two flat vectors (decayed and
+not), or one ``[count, *shape]`` stack per (decay, dtype, shape) group. The
+buffers are laid out element for element as the JAX package's
+(:func:`make_flat_opt_spec`, :func:`make_stacked_opt_spec`: the flax tree's
+leaf order, names and shapes through ``convert.py``), the parameters and
+their gradients are views of them, and the clip and AdamW run over the
+buffers (``training/optim.py::BufferAdamW``). They serve the replicated
+layout (one process, or data parallelism) only, as in the JAX package; a
+module's ``state_dict`` still holds whole tensors under the tree's names.
 """
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -64,18 +74,21 @@ from ..convert import flax_leaf
 from ..data.tracklet import TrackletBatch
 from ..models.layers import DropoutKeys
 from ..models.ococcnet import OcOccNetWithLoss, sequence_sharded
-from ..training.optim import (clip_grad_global_norm_, global_norm,
-                              make_optimizer, set_lr)
+from ..training.optim import (BufferAdamW, clip_grad_global_norm_, decays,
+                              global_norm, make_flat_optimizer,
+                              make_optimizer, make_stacked_optimizer, set_lr)
 from . import collectives as cc
 from . import sp
 from .multihost import (data_group, data_rank, data_size, global_sum,
                         model_group, use_mesh, world_size)
 
-__all__ = ["ColumnParallel", "Layout", "create_train_state",
-           "frozen_prefixes", "global_sum", "make_mesh", "make_mesh_2d",
-           "make_train_multi_step", "make_train_step", "mean_over_ranks",
-           "param_shardings", "param_shardings_fsdp", "shard_batch",
-           "wrap_ddp"]
+__all__ = ["ColumnParallel", "FlatOptSpec", "Layout", "StackedOptSpec",
+           "create_train_state", "flatten_by_spec", "frozen_prefixes",
+           "global_sum", "make_flat_opt_spec", "make_mesh", "make_mesh_2d",
+           "make_stacked_opt_spec", "make_train_multi_step",
+           "make_train_step", "mean_over_ranks", "param_shardings",
+           "param_shardings_fsdp", "shard_batch", "stack_by_spec",
+           "unflatten_by_spec", "unstack_by_spec", "wrap_ddp"]
 
 
 def frozen_prefixes(cfg: OcOccNetConfig) -> tuple:
@@ -84,20 +97,168 @@ def frozen_prefixes(cfg: OcOccNetConfig) -> tuple:
     return ("ae_encoder",) if cfg.fixed_ae else ()
 
 
+class FlatOptSpec(NamedTuple):
+    """Where each parameter lies in the two flat vectors of the flat
+    optimizer (``{"decay", "nodecay"}``, the split of
+    ``training/optim.py::decays``). Per parameter, in the flax tree's leaf
+    order: its name (``names``), ``(group, offset, size, flax shape,
+    dtype)`` (``entries``, the JAX spec's) and the permutation from its
+    torch layout to the flax one (``perms``, flax dim i = torch dim
+    ``perm[i]``)."""
+    names: tuple
+    entries: tuple
+    perms: tuple
+    sizes: dict
+
+
+class StackedOptSpec(NamedTuple):
+    """Where each parameter lies in the shape-grouped stacks of the stacked
+    optimizer: every parameter of one (decay, dtype, flax shape) group at
+    one slot of a ``[count, *shape]`` stack, keyed ``"d:float32:AxB"`` ("n"
+    without decay) as in the JAX package. ``entries``: per parameter
+    ``(key, slot, flax shape, dtype)``; ``groups``: key -> ``(count, shape,
+    dtype)``."""
+    names: tuple
+    entries: tuple
+    perms: tuple
+    groups: dict
+
+
+def _tree_leaves(params: dict) -> list:
+    """``(name, perm, flax shape, decays)`` of each parameter of ``params``
+    (name -> tensor, torch layout), in the flax tree's leaf order: sorted by
+    the flax path, as ``jax.tree_util`` flattens a dict."""
+    rows = []
+    for name, p in params.items():
+        path, perm, mirrored = flax_leaf(name, tuple(p.shape))
+        if mirrored:
+            raise ValueError(f"{name}: a transposed convolution's taps are "
+                             f"mirrored in the flax tree, which no view "
+                             f"of a buffer can hold")
+        rows.append((path, name, perm,
+                     tuple(int(p.shape[d]) for d in perm), decays(name)))
+    return [r[1:] for r in sorted(rows)]
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def make_flat_opt_spec(params: dict) -> FlatOptSpec:
+    """The flat layout of ``params`` (name -> tensor; its shapes alone)."""
+    offs = {"decay": 0, "nodecay": 0}
+    names, entries, perms = [], [], []
+    for name, perm, shape, dec in _tree_leaves(params):
+        g = "decay" if dec else "nodecay"
+        size = math.prod(shape)
+        names.append(name)
+        perms.append(perm)
+        entries.append((g, offs[g], size, shape, params[name].dtype))
+        offs[g] += size
+    return FlatOptSpec(tuple(names), tuple(entries), tuple(perms), offs)
+
+
+def make_stacked_opt_spec(params: dict) -> StackedOptSpec:
+    """The stacked layout of ``params`` (name -> tensor; its shapes
+    alone)."""
+    counts: dict = {}
+    names, entries, perms = [], [], []
+    for name, perm, shape, dec in _tree_leaves(params):
+        dt = params[name].dtype
+        key = (("d" if dec else "n") + ":" + _dtype_name(dt) + ":"
+               + "x".join(str(s) for s in shape))
+        slot = counts.get(key, 0)
+        counts[key] = slot + 1
+        names.append(name)
+        perms.append(perm)
+        entries.append((key, slot, shape, dt))
+    groups = {key: (counts[key], shape, dt) for key, _, shape, dt in entries}
+    return StackedOptSpec(tuple(names), tuple(entries), tuple(perms), groups)
+
+
+def _to_torch(perm) -> tuple:
+    return tuple(sorted(range(len(perm)), key=perm.__getitem__))
+
+
+def flatten_by_spec(spec: FlatOptSpec, tree: dict) -> dict:
+    """``tree`` (name -> tensor, torch layout) as the two flat vectors, each
+    tensor in its flax layout (new contiguous tensors)."""
+    parts: dict = {"decay": [], "nodecay": []}
+    for name, perm, (g, *_) in zip(spec.names, spec.perms, spec.entries):
+        parts[g].append(tree[name].permute(perm).reshape(-1))
+    dev = next(iter(tree.values())).device
+    return {g: (torch.cat(v) if v else torch.zeros(0, device=dev))
+            for g, v in parts.items()}
+
+
+def unflatten_by_spec(spec: FlatOptSpec, flat: dict) -> dict:
+    """name -> each parameter of ``flat`` in its torch layout: views."""
+    return {name: flat[g][off:off + size].view(shape).permute(_to_torch(perm))
+            for name, perm, (g, off, size, shape, _) in zip(
+                spec.names, spec.perms, spec.entries)}
+
+
+def stack_by_spec(spec: StackedOptSpec, tree: dict) -> dict:
+    """``tree`` (name -> tensor, torch layout) as the stacks, each tensor in
+    its flax layout (new contiguous tensors)."""
+    parts = {k: [None] * c for k, (c, _, _) in spec.groups.items()}
+    for name, perm, (key, slot, _, _) in zip(spec.names, spec.perms,
+                                             spec.entries):
+        parts[key][slot] = tree[name].permute(perm)
+    return {k: torch.stack(v) for k, v in parts.items()}
+
+
+def unstack_by_spec(spec: StackedOptSpec, stacked: dict) -> dict:
+    """name -> each parameter of ``stacked`` in its torch layout: views."""
+    return {name: stacked[key][slot].permute(_to_torch(perm))
+            for name, perm, (key, slot, _, _) in zip(
+                spec.names, spec.perms, spec.entries)}
+
+
 def create_train_state(cfg: OcOccNetConfig, total_steps: int,
-                       device="cuda", seed: int = 0):
+                       device="cuda", seed: int = 0, flat_opt: bool = False,
+                       stacked_opt: bool = False):
     """``(model, optimizer, schedule)``: ``OcOccNetWithLoss`` with weights
     drawn from a ``torch.Generator`` seeded with ``seed``, on ``device``
     (``cuda`` unless the caller asks for the CPU), and AdamW with the
     cyclic-cosine schedule of the config's recipe. The model is whole on
-    every rank; ``make_train_step`` lays it out."""
+    every rank; ``make_train_step`` lays it out.
+
+    ``flat_opt``: the optimizer is ``make_flat_optimizer``'s over the flat
+    vectors of :func:`make_flat_opt_spec`, the parameters views of them
+    (pass ``flat_opt=True`` to ``make_train_step``). ``stacked_opt`` (which
+    wins): the same over the stacks of :func:`make_stacked_opt_spec`, and
+    the spec is returned too: ``(model, optimizer, schedule, spec)`` (pass
+    ``stacked_spec=spec``). Neither supports the frozen auto-encoder
+    (``fixed_ae``), as in the JAX package."""
+    if (flat_opt or stacked_opt) and frozen_prefixes(cfg):
+        raise ValueError("flat_opt / stacked_opt do not support frozen "
+                         "parameters (fixed_ae=True): use the tree optimizer")
     model = OcOccNetWithLoss(cfg, device,
                              torch.Generator().manual_seed(seed))
-    optimizer, schedule = make_optimizer(
-        model.named_parameters(), cfg.base_lr, total_steps,
-        weight_decay=cfg.weight_decay, peak_ratio=cfg.lr_mult,
-        frozen_prefixes=frozen_prefixes(cfg))
-    return model, optimizer, schedule
+    kw = dict(weight_decay=cfg.weight_decay, peak_ratio=cfg.lr_mult)
+    if not (flat_opt or stacked_opt):
+        optimizer, schedule = make_optimizer(
+            model.named_parameters(), cfg.base_lr, total_steps,
+            frozen_prefixes=frozen_prefixes(cfg), **kw)
+        return model, optimizer, schedule
+    named = dict(model.named_parameters())
+    if stacked_opt:
+        spec = make_stacked_opt_spec(named)
+        build, unbuild, make = (stack_by_spec, unstack_by_spec,
+                                make_stacked_optimizer)
+    else:
+        spec = make_flat_opt_spec(named)
+        build, unbuild, make = (flatten_by_spec, unflatten_by_spec,
+                                make_flat_optimizer)
+    optimizer, schedule = make(build(spec, named), cfg.base_lr, total_steps,
+                               grad_clip=cfg.grad_clip_norm, **kw)
+    views = unbuild(spec, optimizer.params)
+    grads = unbuild(spec, optimizer.grads)
+    optimizer.bind([named[n] for n in spec.names],
+                   [views[n] for n in spec.names],
+                   [grads[n] for n in spec.names])
+    return (model, optimizer, schedule) + ((spec,) if stacked_opt else ())
 
 
 def make_mesh(device_type: str | None = None):
@@ -419,11 +580,12 @@ def mean_over_ranks(metrics: dict, keys) -> dict:
 
 
 def make_train_step(model: OcOccNetWithLoss,
-                    optimizer: torch.optim.Optimizer,
+                    optimizer: torch.optim.Optimizer | BufferAdamW,
                     schedule: Callable[[int], float], seed: int = 0,
                     mesh=None, tp_min_dim: int = 1024, fsdp: bool = False,
                     fsdp_min_size: int = 1 << 15,
-                    sequence_parallel: bool = False):
+                    sequence_parallel: bool = False, flat_opt: bool = False,
+                    stacked_spec: StackedOptSpec | None = None):
     """``step_fn(step, batch) -> metrics``: one training step on ``batch``
     (moved to the model's device; under data parallelism the data rank's
     slice of the global batch). The metrics are the loss dict and
@@ -435,18 +597,41 @@ def make_train_step(model: OcOccNetWithLoss,
     ``mesh`` lays the model out (:class:`Layout`: TP with ``tp_min_dim``,
     FSDP with ``fsdp_min_size``, ``sequence_parallel``); this shards
     ``model`` and ``optimizer`` in place. ``step_fn.layout`` gathers whole
-    state dicts for a checkpoint."""
+    state dicts for a checkpoint.
+
+    ``flat_opt`` / ``stacked_spec``: ``optimizer`` is the flat or stacked
+    one of ``create_train_state``, whose buffers the gradients accumulate
+    into; ``grad_norm`` is their global norm. Both refuse a TP or FSDP
+    layout (per-parameter moments), as the JAX package does."""
     cfg = model.cfg
     device = model.code_weights.device
+    buffered = flat_opt or stacked_spec is not None
+    if buffered:
+        if fsdp or "model" in (getattr(mesh, "mesh_dim_names", None) or ()):
+            raise ValueError(
+                "flat_opt / stacked_opt serve the replicated layout only "
+                "(one process or data parallelism): TP and FSDP shard "
+                "per-parameter moments; use the tree optimizer")
+        keys = ({"decay", "nodecay"} if stacked_spec is None
+                else set(stacked_spec.groups))
+        if not isinstance(optimizer, BufferAdamW) or \
+                set(optimizer.params) != keys:
+            raise ValueError("flat_opt / stacked_spec take the optimizer of "
+                             "create_train_state(flat_opt=True / "
+                             "stacked_opt=True)")
+    elif isinstance(optimizer, BufferAdamW):
+        raise ValueError("a flat or stacked optimizer needs "
+                         "make_train_step(flat_opt=True / stacked_spec=)")
     layout = Layout(model, mesh, tp_min_dim, fsdp, fsdp_min_size,
                     sequence_parallel)
-    layout.shard_(model, optimizer)
-    trained = [p for group in optimizer.param_groups
-               for p in group["params"]]
-    params = list(model.parameters())
-    frozen = len(trained) != len(params)
-    trained, trained_sharded = layout.split(model, trained)
-    every, every_sharded = layout.split(model, params)
+    if not buffered:
+        layout.shard_(model, optimizer)
+        trained = [p for group in optimizer.param_groups
+                   for p in group["params"]]
+        params = list(model.parameters())
+        frozen = len(trained) != len(params)
+        trained, trained_sharded = layout.split(model, trained)
+        every, every_sharded = layout.split(model, params)
     loss_fn = model if layout.fsdp else wrap_ddp(
         model, process_group=data_group(mesh))
     shard = data_rank(mesh)
@@ -456,8 +641,11 @@ def make_train_step(model: OcOccNetWithLoss,
     def step_fn(step: int, batch: TrackletBatch) -> dict:
         batch = batch.to(device)
         base[1].fill_(step)
-        set_lr(optimizer, schedule(step))
-        model.zero_grad(set_to_none=True)
+        if buffered:
+            optimizer.zero_grad()
+        else:
+            set_lr(optimizer, schedule(step))
+            model.zero_grad(set_to_none=True)
         with layout.running(model):
             total, aux = loss_fn(batch, train=True,
                                  keys=DropoutKeys(base, rank=shard))
@@ -465,6 +653,8 @@ def make_train_step(model: OcOccNetWithLoss,
             layout.reduce_grads(model)
             aux = mean_over_ranks({k: v.detach() for k, v in aux.items()},
                                   [k for k in aux if k.startswith("loss")])
+            if buffered:
+                return {**aux, "grad_norm": optimizer.step(schedule(step))}
             norm_all = (global_norm(
                 [p.grad for p in every if p.grad is not None],
                 [p.grad for p in every_sharded if p.grad is not None],

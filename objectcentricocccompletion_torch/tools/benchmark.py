@@ -8,9 +8,11 @@
     python -m objectcentricocccompletion_torch.tools.benchmark ococcnet \\
         [--frames 20] [--eval-layout dense] [--dtype float32]
     python -m objectcentricocccompletion_torch.tools.benchmark ococcnet \\
-        --train [--frames 10] [--eval-layout dense] [--dtype float32]
+        --train [--frames 10] [--eval-layout dense] [--dtype float32] \\
+        [--opt tree|flat|stacked]
     python -m objectcentricocccompletion_torch.tools.benchmark centerpoint \\
-        [--train] [--frames 20] [--num-real 150000]
+        [--train] [--frames 20] [--num-real 150000] \\
+        [--encoder-layout column] [--dtype bfloat16]
     python -m objectcentricocccompletion_torch.tools.benchmark fsd|fsd2 \\
         [--train] [--frames 20] [--num-real 150000] [--dtype bfloat16]
     python -m objectcentricocccompletion_torch.tools.benchmark fsdpp \\
@@ -47,7 +49,11 @@ tracklets/s, the decode time, the peak of
 with the config's dropout, backward, clip, AdamW: ``parallel/train.py``)
 and prints the per-step latency (host clock around a step that ends in a
 device synchronise, median over the timed steps after warm-up),
-tracklets/s and the peak memory over the timed steps.
+tracklets/s and the peak memory over the timed steps. ``--opt flat`` /
+``stacked`` trains with the flat or the stacked optimizer layout
+(``create_train_state(flat_opt= | stacked_opt=)``; ``tree`` by default),
+the counterpart of the JAX ``bench.py``'s ``BENCH_FLAT`` /
+``BENCH_STACKED``.
 
 ``centerpoint`` builds the full-width ``DynamicCenterPoint(
 CenterPointConfig())`` (float32; seeded random weights) and times
@@ -56,7 +62,10 @@ with ``--train``, training steps on it (its 32 boxes padded to 128); it
 prints the latency and the peak memory as for ``sst``, and the occupied
 voxels of each stage against its budget (the voxelized input, the
 encoder's three downsampled stages and conv_out), which both packages cut
-silently.
+silently. ``--encoder-layout column`` runs the encoder's column-dense
+layout instead (``--dtype``: its activations, the config's bfloat16 by
+default; the gather layout computes in float32 whatever it says) and
+prints the occupied columns of each stage against the column budgets.
 
 ``fsd`` / ``fsd2`` do the same with the training CLI's full-width ``FSD(
 FSDConfig())`` / ``TwoStageFSD(TwoStageFSDConfig())`` (``--dtype`` sets
@@ -327,19 +336,23 @@ def bench_sst_train(steps: int, dtype: str = "bfloat16", device="cuda",
     return res
 
 
-def build_centerpoint(device="cuda", seed: int = 0) -> DynamicCenterPoint:
-    """Full-width ``CenterPointConfig()`` with seeded random weights."""
-    return build_frame_detector("centerpoint", None, device, seed)
+def build_centerpoint(device="cuda", seed: int = 0, layout: str = "gather",
+                      dtype: str | None = None) -> DynamicCenterPoint:
+    """Full-width ``CenterPointConfig()`` with seeded random weights, its
+    encoder in ``layout`` (``dtype``: the column layout's activations)."""
+    return build_frame_detector("centerpoint", dtype, device, seed,
+                                encoder_layout=layout)
 
 
 def build_frame_detector(family: str, dtype: str | None = None,
-                         device="cuda", seed: int = 0):
+                         device="cuda", seed: int = 0, **config_kw):
     """The full-width ``centerpoint``, ``fsd``, ``fsd2`` or ``fsdpp``
-    detector of the training CLI (``dtype``: its ``--dtype``) with seeded
-    random weights."""
+    detector of the training CLI (``dtype``: its ``--dtype``;
+    ``config_kw``: CenterPoint's ``encoder_layout``) with seeded random
+    weights."""
     return build_detector(family, dtype=dtype, device=device,
-                          generator=torch.Generator().manual_seed(seed)
-                          ).eval()
+                          generator=torch.Generator().manual_seed(seed),
+                          **config_kw).eval()
 
 
 def budgets(model, points, mask) -> dict:
@@ -354,12 +367,14 @@ def budgets(model, points, mask) -> dict:
 
 def bench_detector(family: str = "centerpoint", frames: int = 20,
                    dtype: str | None = None, device="cuda", seed: int = 0,
-                   num_real: int = 150000, profile_n: int = 0) -> dict:
+                   num_real: int = 150000, profile_n: int = 0,
+                   **config_kw) -> dict:
     """Full-width ``predict`` of a frame detector (``centerpoint``, ``fsd``,
     ``fsd2``) per frame (median over ``frames`` after warm-up), the peak
-    memory over the timed frames and the budgets' counts."""
+    memory over the timed frames and the budgets' counts; ``config_kw``:
+    CenterPoint's ``encoder_layout``."""
     dev = resolve_device(device)
-    model = build_frame_detector(family, dtype, dev, seed)
+    model = build_frame_detector(family, dtype, dev, seed, **config_kw)
     points, mask = frame_tensors(model.cfg, dev, num_real, seed)
     predict = make_predict_fn(model, family)
     predict(points, mask)
@@ -369,7 +384,7 @@ def bench_detector(family: str = "centerpoint", frames: int = 20,
     times = time_frames(predict, points, mask, frames, warmup=1)
     med = statistics.median(times)
     res = {"family": family, "dtype": dtype or "float32", "frames": frames,
-           "num_real_points": num_real, "latency_ms": med,
+           **config_kw, "num_real_points": num_real, "latency_ms": med,
            "mean_ms": statistics.fmean(times), "fps": 1e3 / med,
            "unit": "frames/sec", "peak_memory_gib": _peak_gib(dev),
            **budgets(model, points, mask), **_card(dev)}
@@ -382,13 +397,15 @@ def bench_detector(family: str = "centerpoint", frames: int = 20,
 def bench_detector_train(family: str = "centerpoint", steps: int = 10,
                          dtype: str | None = None, device="cuda",
                          seed: int = 0, num_real: int = 150000,
-                         profile_n: int = 0, warmup: int = 2) -> dict:
+                         profile_n: int = 0, warmup: int = 2,
+                         **config_kw) -> dict:
     """Full-width training steps of a frame detector (forward, loss,
     backward, clip, AdamW at the schedule of ``train_detector``'s
     defaults) on one frame; the median step over ``steps`` after
-    ``warmup``."""
+    ``warmup``; ``config_kw``: CenterPoint's ``encoder_layout``."""
     dev = resolve_device(device)
-    model = build_frame_detector(family, dtype, dev, seed).train()
+    model = build_frame_detector(family, dtype, dev, seed,
+                                 **config_kw).train()
     batch = train_batch(model.cfg, dev, num_real, seed)
     optimizer, schedule = make_optimizer(
         model.named_parameters(), base_lr=1e-5,
@@ -408,7 +425,8 @@ def bench_detector_train(family: str = "centerpoint", steps: int = 10,
     times = time_calls(step, steps, dev, warmup=0)
     med = statistics.median(times)
     res = {"family": family, "mode": "train", "dtype": dtype or "float32",
-           "steps": steps, "num_real_points": num_real, "step_ms": med,
+           **config_kw, "steps": steps, "num_real_points": num_real,
+           "step_ms": med,
            "mean_ms": statistics.fmean(times),
            "metrics": {k: float(v) for k, v in metrics.items()},
            "peak_memory_gib": _peak_gib(dev),
@@ -661,16 +679,23 @@ def bench_ococcnet_train(steps: int = 10, dtype: str = "bfloat16",
                          layout: str = "packed", device="cuda",
                          seed: int = 0, profile_n: int = 0,
                          cfg: OcOccNetConfig | None = None,
-                         batch: int = OCC_BATCH, warmup: int = 2) -> dict:
+                         batch: int = OCC_BATCH, warmup: int = 2,
+                         opt: str = "tree") -> dict:
     """OcOccNet training steps at full width on one ``synthetic_batch`` of
     ``batch`` tracklets; the step time is the median over ``steps`` after
-    ``warmup``; one more step gives the metrics."""
+    ``warmup``; one more step gives the metrics. ``opt``: the optimizer
+    layout, ``tree``, ``flat`` or ``stacked``."""
     dev = resolve_device(device)
     cfg = ococcnet_config(dtype, layout, cfg)
     total = warmup + steps + 1 + profile_n
-    model, optimizer, schedule = create_train_state(cfg, total, dev, seed)
+    state = create_train_state(cfg, total, dev, seed,
+                               flat_opt=opt == "flat",
+                               stacked_opt=opt == "stacked")
+    model, optimizer, schedule = state[:3]
     b = synthetic_batch(cfg, batch_size=batch, seed=seed).to(dev)
-    step_fn = make_train_step(model, optimizer, schedule, seed=seed + 1)
+    step_fn = make_train_step(
+        model, optimizer, schedule, seed=seed + 1, flat_opt=opt == "flat",
+        stacked_spec=state[3] if opt == "stacked" else None)
     count = iter(range(total))
     for _ in range(warmup):
         step_fn(next(count), b)
@@ -682,7 +707,7 @@ def bench_ococcnet_train(steps: int = 10, dtype: str = "bfloat16",
     metrics = {k: float(v) for k, v in step_fn(next(count), b).items()}
     med = statistics.median(times)
     res = {"family": "ococcnet", **occ_options(model, b), "mode": "train",
-           "dtype": dtype, "eval_layout": layout, "batch": batch,
+           "dtype": dtype, "eval_layout": layout, "opt": opt, "batch": batch,
            "steps": steps,
            "step_ms": med, "mean_ms": statistics.fmean(times),
            "fps": batch * 1e3 / med, "unit": "tracklets/sec",
@@ -877,8 +902,15 @@ def main(argv=None) -> None:
     p.add_argument("--dtype", default=None,
                    choices=["bfloat16", "float32"],
                    help="sst / ococcnet: bfloat16 by default; fsd / fsd2 / "
-                        "fsdpp: float32 by default; centerpoint computes in "
-                        "float32 only")
+                        "fsdpp: float32 by default; centerpoint: the column "
+                        "layout's activations (bfloat16 by default; the "
+                        "gather layout computes in float32)")
+    p.add_argument("--encoder-layout", choices=["gather", "column"],
+                   default="gather",
+                   help="centerpoint: the sparse encoder's layout")
+    p.add_argument("--opt", choices=["tree", "flat", "stacked"],
+                   default="tree",
+                   help="ococcnet / ctrl --train: the optimizer layout")
     p.add_argument("--device", default="cuda")
     p.add_argument("--num-real", type=int, default=150000,
                    help="real points in the synthetic frame")
@@ -905,21 +937,27 @@ def main(argv=None) -> None:
                                profile_n=args.profile)))
         return
     if args.family in ("centerpoint", "fsd", "fsd2"):
-        if args.family == "centerpoint" and args.dtype not in (None,
-                                                               "float32"):
-            raise SystemExit("centerpoint computes in float32 end to end")
+        if args.family == "centerpoint" and args.dtype not in (
+                None, "float32") and args.encoder_layout == "gather":
+            raise SystemExit("centerpoint's gather layout computes in "
+                             "float32 end to end")
+        kw = ({"encoder_layout": args.encoder_layout}
+              if args.family == "centerpoint" else {})
         bench = bench_detector_train if args.train else bench_detector
         print(json.dumps(bench(args.family, args.frames, args.dtype,
                                args.device, num_real=args.num_real,
-                               profile_n=args.profile)))
+                               profile_n=args.profile, **kw)))
         return
     args.dtype = args.dtype or "bfloat16"
     if args.family in ("ococcnet", "ctrl"):
+        kw = {"opt": args.opt} if args.train else {}
+        if args.opt != "tree" and not args.train:
+            raise SystemExit("--opt applies to --train")
         bench = bench_ococcnet_train if args.train else bench_ococcnet
         print(json.dumps(bench(
             args.frames, args.dtype, args.eval_layout, args.device,
             profile_n=args.profile, cfg=occ_bench_config(
-                args.family, args.segmentor, args.remat))))
+                args.family, args.segmentor, args.remat), **kw)))
         return
     bench = bench_sst_train if args.train else bench_sst
     print(json.dumps(bench(args.frames, args.dtype, args.device,

@@ -39,9 +39,10 @@ points and 32 boxes per frame, as the JAX CLI) and trains with
 ``train_detector``; ``write_synthetic_frames`` (``data/frame_dataset.py``)
 writes a production-scale synthetic dataset for it. ``centerpoint`` does
 the same with ``DynamicCenterPoint`` (``CenterPointConfig()``, or
-``tiny_centerpoint_config()`` with ``--tiny``), float32 end to end: its
-``--dtype`` sets ``encoder_dtype`` as the JAX CLI does, which only the
-column layout (not ported) reads. ``fsd`` trains the single-stage
+``tiny_centerpoint_config()`` with ``--tiny``), float32 end to end in the
+config's gather layout: its ``--dtype`` sets ``encoder_dtype`` as the JAX
+CLI does, the activations of the column layout (``encoder_layout=
+"column"``, which neither CLI selects). ``fsd`` trains the single-stage
 ``FSD`` (``FSDConfig()``, or ``tiny_fsd_config()``) on ``fsd_loss``,
 ``fsd2`` the two-stage ``TwoStageFSD`` (``TwoStageFSDConfig()``, or
 ``tiny_two_stage_config()``) on ``two_stage_loss``; ``--dtype`` sets
@@ -274,9 +275,13 @@ def sst_train_config(tiny: bool = False, dtype: str | None = None
     return cfg
 
 
-def centerpoint_train_config(tiny: bool = False, dtype: str | None = None
+def centerpoint_train_config(tiny: bool = False, dtype: str | None = None,
+                             encoder_layout: str = "gather"
                              ) -> CenterPointConfig:
+    """``encoder_layout``: the sparse encoder's layout (no CLI flag selects
+    it, as in the JAX CLIs; ``tools/benchmark.py --encoder-layout``)."""
     cfg = tiny_centerpoint_config() if tiny else CenterPointConfig()
+    cfg = dataclasses.replace(cfg, encoder_layout=encoder_layout)
     if dtype:
         cfg = dataclasses.replace(cfg, encoder_dtype=dtype)
     return cfg

@@ -1,6 +1,7 @@
 """Optimizer and learning-rate schedule (counterpart of the JAX package's
-``training/optim.py::cyclic_cosine_schedule``, ``_no_decay_mask`` and
-``make_optimizer``).
+``training/optim.py``: ``cyclic_cosine_schedule``, ``_no_decay_mask``,
+``make_optimizer``, and ``make_flat_optimizer`` / ``make_stacked_optimizer``
+over :class:`BufferAdamW`).
 
 The reference recipe: AdamW(0.9, 0.999, eps 1e-8), weight decay 0.05 on
 every parameter but norms and biases, global-norm gradient clip 10, and
@@ -125,3 +126,113 @@ def clip_grad_global_norm_(params: Iterable[torch.Tensor],
     for g in grads:
         g.div_(div.to(g.dtype)).mul_(mul.to(g.dtype))
     return norm
+
+
+def make_flat_optimizer(flat_params: dict[str, torch.Tensor],
+                        base_lr: float, total_steps: int,
+                        weight_decay: float = 0.05, grad_clip: float = 10.0,
+                        peak_ratio: float = 100.0):
+    """The recipe of :func:`make_optimizer` over the two flat vectors
+    ``{"decay": vec, "nodecay": vec}`` that hold every parameter
+    (``parallel/train.py::make_flat_opt_spec``; the JAX package's
+    ``make_flat_optimizer``). Returns ``(optimizer, schedule)``. Frozen
+    parameters are not supported: use the tree optimizer there."""
+    return (BufferAdamW(flat_params, {k: k == "decay" for k in flat_params},
+                        weight_decay, grad_clip),
+            cyclic_cosine_schedule(base_lr, total_steps,
+                                   peak_ratio=peak_ratio))
+
+
+def make_stacked_optimizer(stacked_params: dict[str, torch.Tensor],
+                           base_lr: float, total_steps: int,
+                           weight_decay: float = 0.05,
+                           grad_clip: float = 10.0,
+                           peak_ratio: float = 100.0):
+    """The same recipe over shape-grouped ``[count, *shape]`` stacks
+    (``parallel/train.py::make_stacked_opt_spec``; the JAX package's
+    ``make_stacked_optimizer``): a stack decays where its key starts with
+    "d". Returns ``(optimizer, schedule)``."""
+    return (BufferAdamW(stacked_params,
+                        {k: k.startswith("d") for k in stacked_params},
+                        weight_decay, grad_clip),
+            cyclic_cosine_schedule(base_lr, total_steps,
+                                   peak_ratio=peak_ratio))
+
+
+class BufferAdamW:
+    """optax's ``chain(clip_by_global_norm(grad_clip), adamw(lr, 0.9, 0.999,
+    eps=1e-8, weight_decay, mask))`` over a few contiguous buffers that hold
+    every parameter: ``params`` (key -> buffer), the gradients in buffers
+    of the same layout (``grads``), ``decay`` (key -> whether weight decay
+    applies). The parameters bound with :meth:`bind` are views of
+    ``params`` and their gradients views of ``grads``, so the backward
+    accumulates into the buffers and the clip and the update are a few
+    ``torch._foreach_*`` launches over all of them, whatever the number of
+    parameters. The update is ``torch.optim.AdamW``'s, operation for
+    operation (so a step matches the tree optimizer's of
+    :func:`make_optimizer`): optax's AdamW in another order of the same
+    operations, its bias corrections in float64."""
+
+    def __init__(self, params: dict[str, torch.Tensor],
+                 decay: dict[str, bool], weight_decay: float = 0.05,
+                 grad_clip: float = 10.0, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        self.params = params
+        self.grads = {k: torch.zeros_like(v) for k, v in params.items()}
+        self.exp_avg = {k: torch.zeros_like(v) for k, v in params.items()}
+        self.exp_avg_sq = {k: torch.zeros_like(v) for k, v in params.items()}
+        self.decay = decay
+        self.weight_decay = weight_decay
+        self.grad_clip = grad_clip
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.count = 0
+        self.bound: tuple = ()
+
+    def bind(self, params, views, grad_views) -> None:
+        """Make each of ``params`` the view of the buffers that holds its
+        value (``views``, in the parameters' own layout) and its gradient a
+        view of the gradient buffers (``grad_views``)."""
+        for p, v, g in zip(params, views, grad_views):
+            p.data = v
+            p.grad = g
+        self.bound = tuple(zip(params, grad_views))
+
+    def zero_grad(self) -> None:
+        """Zero the gradient buffers and point every bound parameter's
+        gradient at its view again (a ``zero_grad(set_to_none=True)`` of the
+        module unbinds them)."""
+        torch._foreach_zero_(list(self.grads.values()))
+        for p, g in self.bound:
+            p.grad = g
+
+    @torch.no_grad()
+    def step(self, lr: float) -> torch.Tensor:
+        """Clip by the global norm, then one AdamW update at ``lr``. Returns
+        the gradients' global norm before the clip (optax's
+        ``global_norm``), a 0-d tensor on the device."""
+        keys = list(self.params)
+        grads = [self.grads[k] for k in keys]
+        # each buffer's norm accumulated in float64 (a float32 norm of a
+        # long vector drifts by up to 1e-5 relative on the CPU)
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+            grads, 2, dtype=torch.float64))).float()
+        clip = norm >= self.grad_clip
+        torch._foreach_div_(grads, torch.where(clip, norm, 1.0))
+        torch._foreach_mul_(grads, torch.where(
+            clip, torch.full_like(norm, self.grad_clip), 1.0))
+        self.count += 1
+        params = [self.params[k] for k in keys]
+        mu = [self.exp_avg[k] for k in keys]
+        nu = [self.exp_avg_sq[k] for k in keys]
+        dec = [p for k, p in zip(keys, params) if self.decay[k]]
+        if dec and self.weight_decay:
+            torch._foreach_mul_(dec, 1 - lr * self.weight_decay)
+        torch._foreach_lerp_(mu, grads, 1 - self.b1)
+        torch._foreach_mul_(nu, self.b2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1 - self.b2)
+        den = torch._foreach_sqrt(nu)
+        torch._foreach_div_(den, math.sqrt(1 - self.b2 ** self.count))
+        torch._foreach_add_(den, self.eps)
+        torch._foreach_addcdiv_(params, mu, den,
+                                -lr / (1 - self.b1 ** self.count))
+        return norm

@@ -11,7 +11,6 @@ A file of at most four tests (pytest-xdist's ``--dist loadfile``; see
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from objectcentricocccompletion_tpu.models import centerpoint as jcp
@@ -120,7 +119,20 @@ def test_converter_round_trips_the_centerpoint_tree():
                                       k[::-1, ::-1, 1, 2])
 
 
-def test_column_layout_raises_by_name():
-    with pytest.raises(NotImplementedError, match="column"):
-        tcp.DynamicCenterPoint(tcp.CenterPointConfig(
-            encoder_layout="column"), device="cpu")
+def test_column_layout_builds_the_gather_layouts_parameters():
+    """``encoder_layout="column"`` at full width builds with the gather
+    layout's parameter names and shapes (one tree for both layouts), its
+    encoder in the config's bf16 with remat, the gather one in float32."""
+    shapes = {}
+    for layout in ("gather", "column"):
+        model = tcp.DynamicCenterPoint(tcp.CenterPointConfig(
+            encoder_layout=layout), device="cpu")
+        shapes[layout] = {n: tuple(p.shape)
+                          for n, p in model.named_parameters()}
+        assert model.encoder.layout == layout
+        assert model.encoder.dtype == (torch.bfloat16 if layout == "column"
+                                       else torch.float32)
+    assert shapes["column"] == shapes["gather"]
+    assert model.encoder.remat_blocks
+    assert model.encoder.max_columns_per_stage == (60000, 30000, 15000,
+                                                   7500)

@@ -38,7 +38,8 @@ def test_port_sources_exist():
             "hooks.py", "tracklet_segmentor.py", "votenet.py", "pointnet.py",
             "nuscenes_dataset.py", "indoor_dataset.py",
             "argo2_dataset.py", "surgery.py", "publish_model.py",
-            "export.py", "multihost.py", "sp.py", "collectives.py"} <= names
+            "export.py", "multihost.py", "sp.py", "collectives.py",
+            "column_conv.py", "profiling.py"} <= names
     for sub in ("tools_occ", "tools_ctrl"):
         assert (ROOT / "objectcentricocccompletion_torch" / sub /
                 "__init__.py").exists()
@@ -98,5 +99,6 @@ def test_port_modules_import_without_the_jax_package():
     assert "objectcentricocccompletion_torch.data.argo2_dataset" in modules
     assert "objectcentricocccompletion_torch.models.votenet" in modules
     for name in ("training.surgery", "tools.publish_model",
-                 "serving.export", "parallel.multihost"):
+                 "serving.export", "parallel.multihost", "ops.column_conv",
+                 "utils.profiling"):
         assert f"objectcentricocccompletion_torch.{name}" in modules
