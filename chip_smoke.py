@@ -7,8 +7,9 @@ annotator, the data-prep CLI and augmented multi-sweep training, CTRL with
 its tracklet segmentor, SIR remat, the tracklet loader's worker processes,
 VoteNet on indoor scenes and SST on nuScenes frames, checkpoint surgery,
 the serving export, data-parallel training and sharded evaluation, model
-parallelism, CenterPoint's column-dense encoder layout and OcOccNet's flat
-and stacked optimizer layouts, on one CUDA card.
+parallelism, CenterPoint's column-dense encoder layout, OcOccNet's flat
+and stacked optimizer layouts (also under data parallelism) and the
+benchmark CLI on trained weights, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -130,8 +131,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
     moved but the velocity branch's 3 (code weight 0), ms/step and the
     peak memory.
 15. One float32 CenterPoint training step (TF32 off) of one dense frame on
-    the card against the CPU: the losses, every clipped gradient and every
-    parameter after the update, at the bars beside their constants.
+    the card against the CPU, the card's ReLU routes fed to the CPU
+    (``ops/routes.py``; at most ``CP_ROUTE_FLIPS`` of the fed elements
+    differ from the CPU's own): the losses, every clipped gradient and
+    every parameter after the update, at the bars beside their
+    constants.
 16. ``tools/test.py centerpoint`` with ``--metric kitti`` and ``--metric
     waymo`` on phase 14's checkpoint (its heatmap bias lifted so that the
     decode keeps boxes) and frames; the predict's ms per frame under the
@@ -325,13 +329,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
     stacked_opt=)``): every step's losses and ``grad_norm`` and the
     parameters after the first within phase 38's bars of its plain step;
     ms per step and the kernels per step and per clip and update
-    (``torch.profiler``), the tree optimizer's beside them. Phases 45-47
-    count 0 window-attention launches.
-48. Print the kernels' JSON line (the bf16 and the float32 tensor-core
+    (``torch.profiler``), the tree optimizer's beside them; then the flat
+    layout on two gloo ranks on ``cuda:0`` (half the batch each), as phase
+    38 (b) runs the tree: every step's losses and ``grad_norm`` and the
+    parameters after the first within phase 38's bars of its plain step,
+    the ranks' parameters bit-equal. Phases 45-47 count 0 window-attention
+    launches.
+48. The benchmark CLI on trained weights (``tools/benchmark.py``'s
+    ``main`` with ``--ckpt-dir``, ``BENCH_CKPT_FRAMES`` timed calls at full
+    width): ``ococcnet`` on phase 8's training checkpoint at ``--batch 2``
+    and ``--batch 8`` and on phase 36's release at the default batch,
+    ``sst --dtype float32`` on phase 5's float32 checkpoint,
+    ``centerpoint`` on phase 14's and ``fsd`` on phase 19's. Each line's
+    ``ckpt_step`` and ``params_hash`` must be those of the file it loaded
+    (``surgery.tree_hash``), every output finite and of the predict
+    shapes, OcOccNet's tracklets per call the ``--batch``; SST launches 12
+    forward kernels per level per predict call and no backward one, the
+    other families none. Prints ms per batch or frame with the card's name
+    and power limit.
+49. Print the kernels' JSON line (the bf16 and the float32 tensor-core
     kernels, each level apart; launches of the bf16 frames and bf16
     training, and of the float32 frame, float32, augmented, nuScenes and
-    data-parallel training (both ranks) and the SST evaluations), then as
-    the last line ``{"ok": true, "device": {...}}``.
+    data-parallel training (both ranks), the SST evaluations and phase
+    48's float32 SST benchmark), then as the last line ``{"ok": true,
+    "device": {...}}``.
 
 The Argoverse 2 reader needs pandas and pyarrow, which the card's machine
 lacks: the CPU tests hold it, this script does not drive it.
@@ -679,6 +700,10 @@ CP_COLUMN_STEPS = 4
 CP_ROUTE_FLIPS = 1e-5
 # 47: traced steps and optimizer calls for the launch counts
 OPT_TRACE_CALLS = 2
+# phase 48: timed calls of each benchmark run on a checkpoint, and
+# OcOccNet's tracklets per call at phase 8's training checkpoint
+BENCH_CKPT_FRAMES = 3
+BENCH_CKPT_BATCHES = (2, 8)
 
 
 def log(msg):
@@ -1175,13 +1200,19 @@ def serve(model, batch, queries):
     return out
 
 
+def ococc_shapes(cfg, B):
+    """The JAX package's shapes of OcOccNet's predict and occupancy decode
+    for ``B`` tracklets."""
+    L, D, K = cfg.reg_len, cfg.d_model, cfg.num_occ_samples
+    return {"boxes": (B, L, 7), "scores": (B, L), "cls_logit": (B, L),
+            "bbox_pred": (B, L, 7), "shape_latent": (B, L, D),
+            "ae_latent": (B, L, D), "nonempty": (B, L),
+            "occ_logits": (B, L, K)}
+
+
 def check_ococc(what, out, cfg, B):
     """The JAX package's shapes, and every output finite."""
-    L, D, K = cfg.reg_len, cfg.d_model, cfg.num_occ_samples
-    expect = {"boxes": (B, L, 7), "scores": (B, L), "cls_logit": (B, L),
-              "bbox_pred": (B, L, 7), "shape_latent": (B, L, D),
-              "ae_latent": (B, L, D), "nonempty": (B, L),
-              "occ_logits": (B, L, K)}
+    expect = ococc_shapes(cfg, B)
     shapes = {k: tuple(v.shape) for k, v in out.items()}
     if shapes != expect:
         raise AssertionError(f"{what}: shapes {shapes}, expected {expect}")
@@ -1905,29 +1936,29 @@ def phase_cp_fp32_step(dev, layout="gather"):
     """One float32 training step (TF32 off, lr ``CP_STEP_LR``) of one dense
     frame at full width on the card and on the CPU from the same weights,
     the encoder in ``layout`` (float32 activations): the loss dict, every
-    clipped gradient and every parameter after the update. In the column
-    layout the card's ReLU routes are fed to the CPU (``ops/routes.py``;
-    unfed, ReLU inputs within a rounding step of 0 sent 77 gradients up to
-    12 times over their bars, PERF.md section 6), and its residual blocks
-    are not recomputed (a recomputation would record the routes twice; the
-    training phase runs remat, the CPU tests hold it to the JAX package)."""
+    clipped gradient and every parameter after the update. In both layouts
+    the card's ReLU routes are fed to the CPU (``ops/routes.py``; unfed,
+    ReLU inputs within a rounding step of 0 sent 77 gradients of the column
+    step up to 12 times over their bars, PERF.md section 6), at most
+    ``CP_ROUTE_FLIPS`` of the fed elements differing from the CPU's own.
+    Each route is recorded once: the gather layout recomputes nothing, and
+    the column layout's residual blocks are not recomputed here (the
+    training phase runs remat, the CPU tests hold it to the JAX
+    package)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    routed = layout == "column"
     res = []
     for card, where in ((True, dev), (False, torch.device("cpu"))):
         model = bench.build_centerpoint(device=where, seed=0, layout=layout,
                                         dtype="float32").train()
-        model.encoder.remat_blocks = not routed
+        model.encoder.remat_blocks = False
         batch = bench.train_batch(model.cfg, where, 150000, seed=0)
         init = {n: p.detach().cpu().clone()
                 for n, p in model.named_parameters()}
         optimizer, schedule = make_optimizer(model.named_parameters(),
                                              CP_STEP_LR, 100)
         step_fn = make_detector_train_step(model, optimizer, schedule)
-        if not routed:
-            metrics = step_fn(0, batch)
-        elif card:
+        if card:
             with Routes() as routes:
                 metrics = step_fn(0, batch)
         else:
@@ -1938,15 +1969,15 @@ def phase_cp_fp32_step(dev, layout="gather"):
                      for n, p in model.named_parameters()}))
         del model, optimizer, step_fn
     no_kernel_launches(f"centerpoint fp32 step ({layout})")
-    if routed:
-        log(f"centerpoint fp32 step ({layout} layout): the card's "
-            f"{len(routes.masks)} ReLU routes' {fed.fed} elements fed to the "
-            f"CPU, {fed.flips} differ from the CPU's own (bar "
-            f"{CP_ROUTE_FLIPS:.0e} of those fed; (call, op, shape, count): "
-            f"{fed.flipped})")
-        if not fed.flips <= CP_ROUTE_FLIPS * fed.fed:
-            raise AssertionError(f"centerpoint fp32 step: {fed.flips} of "
-                                 f"{fed.fed} route elements differ")
+    log(f"centerpoint fp32 step ({layout} layout): the card's "
+        f"{len(routes.masks)} ReLU routes' {fed.fed} elements fed to the "
+        f"CPU, {fed.flips} differ from the CPU's own (bar "
+        f"{CP_ROUTE_FLIPS:.0e} of those fed; (call, op, shape, count): "
+        f"{fed.flipped})")
+    if not fed.flips <= CP_ROUTE_FLIPS * fed.fed:
+        raise AssertionError(f"centerpoint fp32 step ({layout}): "
+                             f"{fed.flips} of {fed.fed} route elements "
+                             f"differ")
     check_step_card_vs_cpu(f"centerpoint fp32 step ({layout} layout)", res,
                            init, schedule(0))
 
@@ -3681,10 +3712,11 @@ def fsdp_collective_ms(model, layout, reps=3):
     return out
 
 
-def ococc_rank(rank, world, port, out):
-    """One rank of phase 38 in a process of its own: ``world`` 1, DDP in an
-    NCCL group of one rank on the global batch; else rank ``rank`` of
-    ``world`` over gloo on ``cuda:0``, on its slice."""
+def ococc_rank(rank, world, port, out, opt="tree"):
+    """One rank of phase 38 (``opt``: the optimizer layout, phase 47's
+    ``flat``) in a process of its own: ``world`` 1, DDP in an NCCL group of
+    one rank on the global batch; else rank ``rank`` of ``world`` over gloo
+    on ``cuda:0``, on its slice."""
     import torch.distributed as dist
     from objectcentricocccompletion_torch.parallel import multihost
     batch = synthetic_batch(occ_ddp_config(), batch_size=DDP_OCC_BATCH,
@@ -3699,9 +3731,9 @@ def ococc_rank(rank, world, port, out):
         per = DDP_OCC_BATCH // world
         batch = TrackletBatch(*(x[rank * per:(rank + 1) * per]
                                 for x in batch))
-    res = ococc_ddp_run(dev, batch)
+    res = ococc_ddp_run(dev, batch, opt=opt)
     multihost.shutdown()
-    torch.save(res, os.path.join(out, f"ococc_{world}_{rank}.pt"))
+    torch.save(res, os.path.join(out, f"ococc_{opt}_{world}_{rank}.pt"))
 
 
 def compare_occ_steps(what, got, ref):
@@ -3758,9 +3790,9 @@ def phase_ococc_ddp(dev):
         port = free_port()
         run_ranks([rank_argv("ococc_rank", r, 2, port, out) for r in (0, 1)],
                   "ococcnet ddp gloo x2")
-        nccl = torch.load(os.path.join(out, "ococc_1_0.pt"),
+        nccl = torch.load(os.path.join(out, "ococc_tree_1_0.pt"),
                           weights_only=False)
-        ranks = [torch.load(os.path.join(out, f"ococc_2_{r}.pt"),
+        ranks = [torch.load(os.path.join(out, f"ococc_tree_2_{r}.pt"),
                             weights_only=False) for r in (0, 1)]
     compare_occ_steps("ococcnet ddp (a) nccl x1 vs plain", nccl, plain)
     compare_occ_steps("ococcnet ddp (b) gloo x2 vs plain", ranks[0], plain)
@@ -4400,13 +4432,7 @@ def phase_opt_layouts(dev, plain):
         runs[opt] = res = ococc_ddp_run(dev, batch, opt=opt, trace=True)
         compare_occ_steps(f"ococcnet {opt} optimizer vs phase 38's plain "
                           f"step", res, plain)
-        for k, (got, ref) in enumerate(zip(res["steps"], plain["steps"])):
-            for key, v in ref.items():
-                tol = (OCC_STEP_GRAD_NORM_RTOL * v if key == "grad_norm"
-                       else OCC_STEP_LOSS_ATOL)
-                if not abs(got[key] - v) <= tol:
-                    raise AssertionError(f"ococcnet {opt} optimizer step "
-                                         f"{k + 1}: {key} {got[key]} vs {v}")
+        check_occ_step_metrics(f"ococcnet {opt} optimizer", res, plain)
         log(f"ococcnet {opt} optimizer: losses "
             f"{[round(r['loss'], 6) for r in res['steps']]} vs plain "
             f"{[round(r['loss'], 6) for r in plain['steps']]}, grad_norm "
@@ -4426,22 +4452,56 @@ def phase_opt_layouts(dev, plain):
             f"{runs[opt]['update_launches']:.0f} kernels, "
             f"{runs['tree']['update_ms']:.3f} -> "
             f"{runs[opt]['update_ms']:.3f} ms")
+    # the flat layout under data parallelism, as phase 38 (b) runs the tree
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        port = free_port()
+        run_ranks([rank_argv("ococc_rank", r, 2, port, out, "flat")
+                   for r in (0, 1)], "ococcnet flat optimizer ddp gloo x2")
+        ranks = [torch.load(os.path.join(out, f"ococc_flat_2_{r}.pt"),
+                            weights_only=False) for r in (0, 1)]
+    for r, res in enumerate(ranks):
+        compare_occ_steps(f"ococcnet flat optimizer ddp gloo rank {r} of 2 "
+                          f"vs phase 38's plain step", res, plain)
+        check_occ_step_metrics(f"ococcnet flat optimizer ddp rank {r}", res,
+                               plain)
+        log(f"ococcnet flat optimizer ddp gloo rank {r} of 2: batch "
+            f"{DDP_OCC_BATCH // 2} per process, losses "
+            f"{[round(x['loss'], 6) for x in res['steps']]} vs plain "
+            f"{[round(x['loss'], 6) for x in plain['steps']]}, "
+            f"{statistics.median(res['ms'][1:]):.3f} ms/step (steps 2-"
+            f"{DDP_STEPS}; all {[round(x, 3) for x in res['ms']]}), peak "
+            f"{res['peak_gib']:.3f} GiB; one card: the collectives' "
+            f"overhead, not scaling; card {card}")
+    ranks_bit_equal("ococcnet flat optimizer ddp", ranks)
 
 
-def phase_surgery(dev, occ_dir, fsd_ckpt):
-    """36. Surgery: publish phase 8's checkpoint twice (the same
-    ``-{hash8}`` name; the optimizer state gone) and hold its predict on
+def check_occ_step_metrics(what, res, plain):
+    """Every step's losses and ``grad_norm`` of ``res`` at phase 38's bars
+    of its plain step."""
+    for k, (got, ref) in enumerate(zip(res["steps"], plain["steps"])):
+        for key, v in ref.items():
+            tol = (OCC_STEP_GRAD_NORM_RTOL * v if key == "grad_norm"
+                   else OCC_STEP_LOSS_ATOL)
+            if not abs(got[key] - v) <= tol:
+                raise AssertionError(f"{what} step {k + 1}: {key} "
+                                     f"{got[key]} vs {v}")
+
+
+def phase_surgery(dev, occ_dir, fsd_ckpt, keep):
+    """36. Surgery: publish phase 8's checkpoint twice under ``keep`` (the
+    same ``-{hash8}`` name; the optimizer state gone) and hold its predict on
     the card, restored through ``restore_params``, to the source
     checkpoint's bit for bit (deterministic kernels); then transplant the
     FSD checkpoint's ``vfe.`` / ``unet.`` into a one-step CTRL-with-
     segmentor checkpoint through ``tools/publish_model.py`` and run one
     CTRL step from the result (``training/trainer.py::train`` resumes at
-    step 0 with a fresh AdamW)."""
+    step 0 with a fresh AdamW). Returns the release's directory."""
     src = os.path.join(occ_dir, "work", "ckpt")
     cfg = train_cli.ococc_train_config(dtype="bfloat16")
     with tempfile.TemporaryDirectory() as tmp:
         outs = [publish_cli.main(["publish", src, "--out",
-                                  os.path.join(tmp, name)])
+                                  os.path.join(keep, name)])
                 for name in ("release", "again")]
         if outs[0].split("-")[-1] != outs[1].split("-")[-1]:
             raise AssertionError(f"publish: hashes differ {outs}")
@@ -4515,6 +4575,98 @@ def phase_surgery(dev, occ_dir, fsd_ckpt):
             f"FSD's after the transplant; one CTRL step from it at step 0, "
             f"loss {stamps[0]:.6f}; card {card_info()}")
         no_kernel_launches("surgery")
+    return outs[0]
+
+
+def bench_cli(argv):
+    """``tools/benchmark.py``'s ``main(argv)`` in this process: its JSON
+    line."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        bench.main(argv)
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def phase_bench_ckpt(dev, occ_dir, release, sst_dir, cp_work, fsd_work):
+    """48. The benchmark CLI on trained weights (``--ckpt-dir``) and at
+    other batches (``--batch``): ``ococcnet`` on phase 8's training
+    checkpoint at each of ``BENCH_CKPT_BATCHES`` and on phase 36's release
+    at the default batch, ``sst --dtype float32`` on phase 5's float32
+    checkpoint, ``centerpoint`` on phase 14's and ``fsd`` on phase 19's,
+    each for ``BENCH_CKPT_FRAMES`` timed calls at full width: each line's
+    ``ckpt_step`` and ``params_hash`` those of the file it loaded
+    (``surgery.tree_hash``), every output finite and of the predict
+    shapes, OcOccNet's tracklets per call the ``--batch``; SST's 12 forward
+    window-attention launches per level per predict call and no backward
+    one, none on the other families. Returns SST's forward launches."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    occ_ckpt = os.path.join(occ_dir, "work", "ckpt")
+    # (name, argv, checkpoint, OcOccNet's tracklets per call)
+    runs = [(f"ococcnet --batch {b}", ["ococcnet", "--batch", str(b)],
+             occ_ckpt, b) for b in BENCH_CKPT_BATCHES]
+    runs += [("ococcnet (published)", ["ococcnet"], release, bench.OCC_BATCH),
+             ("sst --dtype float32", ["sst", "--dtype", "float32"],
+              os.path.join(sst_dir, "work", "ckpt"), None),
+             ("centerpoint", ["centerpoint"], os.path.join(cp_work, "ckpt"),
+              None),
+             ("fsd", ["fsd"], os.path.join(fsd_work, "fsd", "ckpt"), None)]
+    per_level = 2 * bench.sst_config().sst.num_blocks
+    n_fsd = train_cli.fsd_train_config().max_clusters
+    frame_shapes = {"sst": (500, 7), "centerpoint": (500, 9),
+                    "fsd": (n_fsd, 7)}
+    sst_fwd = collections.Counter()
+    card = card_info()
+    for name, argv, ckpt, batch in runs:
+        wa.LAUNCHES.clear()
+        wa.BWD_LAUNCHES.clear()
+        t = time.perf_counter()
+        res = bench_cli(argv + ["--ckpt-dir", ckpt, "--frames",
+                                str(BENCH_CKPT_FRAMES)])
+        wall = time.perf_counter() - t
+        fwd, bwd = dict(wa.LAUNCHES), dict(wa.BWD_LAUNCHES)
+        step, state = surgery.restore_params(ckpt)
+        digest = surgery.tree_hash(state)
+        if (res["ckpt_step"], res["params_hash"]) != (step, digest):
+            raise AssertionError(f"benchmark {name}: weights "
+                                 f"{res['ckpt_step']} {res['params_hash']}, "
+                                 f"the file's {step} {digest}")
+        family = argv[0]
+        if family == "ococcnet":
+            B = res["batch"]
+            expect = ococc_shapes(bench.occ_bench_config(), B)
+            shapes = {k: tuple(v) for k, v in res["shapes"].items()}
+            if B != batch or shapes != expect or not res["finite"]:
+                raise AssertionError(f"benchmark {name}: batch {B}, shapes "
+                                     f"{shapes} (expected {expect}), finite "
+                                     f"{res['finite']}")
+            unit = f"ms per batch of {B} ({res['fps']:.1f} tracklets/s)"
+            expect_fwd = {}
+        else:
+            n = frame_shapes[family]
+            got = [tuple(x) for x in res["outputs"]["shapes"]]
+            if got != [n, n[:1], n[:1], n[:1]] or not res["outputs"][
+                    "finite"]:
+                raise AssertionError(f"benchmark {name}: outputs "
+                                     f"{res['outputs']}")
+            unit = "ms per frame"
+            calls = res["predict_calls"]
+            expect_fwd = ({T: per_level * calls for _, T in ATTN_SHAPES}
+                          if family == "sst" else {})
+        if fwd != expect_fwd or bwd:
+            raise AssertionError(f"benchmark {name}: window-attention "
+                                 f"launches {fwd} / backward {bwd}, "
+                                 f"expected {expect_fwd}")
+        if family == "sst":
+            sst_fwd.update(fwd)
+        log(f"benchmark {name} --ckpt-dir (step {step}, params_hash "
+            f"{digest[:16]}...): {res['latency_ms']:.3f} {unit}, median of "
+            f"{BENCH_CKPT_FRAMES} (mean {res['mean_ms']:.3f}); "
+            f"window-attention launches {fwd or 0}"
+            + (f" ({per_level} per level per call over {calls} calls)"
+               if family == "sst" else "")
+            + f"; {wall:.1f} s with the model's build; card {card}")
+    return sst_fwd
 
 
 def device_trace(fn, calls=5):
@@ -4760,13 +4912,13 @@ def main():
         log(f"phase E nuscenes: {time.perf_counter() - t:.1f} s")
         wa.LAUNCHES.clear()
         wa.BWD_LAUNCHES.clear()
-        for name, run in (
-                ("36 surgery", lambda: phase_surgery(
-                    dev, occ_dir, os.path.join(fsd_work, "fsd", "ckpt"))),
-                ("37 serving", lambda: phase_serving(dev))):
-            t = time.perf_counter()
-            run()
-            log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        release = phase_surgery(dev, occ_dir,
+                                os.path.join(fsd_work, "fsd", "ckpt"), keep)
+        log(f"phase 36 surgery: {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        phase_serving(dev)
+        log(f"phase 37 serving: {time.perf_counter() - t:.1f} s")
         t = time.perf_counter()
         plain = phase_ococc_ddp(dev)
         log(f"phase 38 ococcnet ddp: {time.perf_counter() - t:.1f} s")
@@ -4794,11 +4946,17 @@ def main():
             run()
             log(f"phase {name}: {time.perf_counter() - t:.1f} s")
         del plain
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        bench_fwd = phase_bench_ckpt(dev, occ_dir, release, sst_dir, cp_work,
+                                     fsd_work)
+        log(f"phase 48 benchmark on checkpoints: "
+            f"{time.perf_counter() - t:.1f} s")
 
     # launches on the model's paths: bf16 inference and training run the
     # bf16 kernels, the float32 frame, float32, augmented, nuScenes and
-    # data-parallel training (both ranks) and the SST evaluation the 3xTF32
-    # ones
+    # data-parallel training (both ranks), the SST evaluation and the
+    # benchmark on the float32 checkpoint the 3xTF32 ones
     src = "objectcentricocccompletion_torch/csrc/"
     fwd_tpu = "objectcentricocccompletion_tpu/ops/pallas_attention.py:25"
     bwd_tpu = ("benchmarks/repro_attn_bwd.py:124 (_attn_bwd_kernel) and :40 "
@@ -4812,7 +4970,8 @@ def main():
             (torch.float32, "fp32", "window_attention.cu",
              "window_attention_bwd.cu",
              {T: fp32_fwd[T] + fp32_train_fwd[T] + eval_fwd[T] + aug_fwd[T]
-              + nus_fwd[T] + ddp_fwd[T] for _, T in ATTN_SHAPES},
+              + nus_fwd[T] + ddp_fwd[T] + bench_fwd[T]
+              for _, T in ATTN_SHAPES},
              {T: fp32_train_bwd[T] + aug_bwd[T] + nus_bwd[T] + ddp_bwd[T]
               for _, T in ATTN_SHAPES})):
         for W, T in ATTN_SHAPES:

@@ -24,6 +24,10 @@
         [--remat] [--dtype float32]
     python -m objectcentricocccompletion_torch.tools.benchmark votenet \\
         [--train] [--frames 10] [--dataset scannet|sunrgbd] [--profile 1]
+    python -m objectcentricocccompletion_torch.tools.benchmark ococcnet \\
+        [--batch 8] [--ckpt-dir WORK/ckpt]
+    python -m objectcentricocccompletion_torch.tools.benchmark \\
+        sst|centerpoint|fsd --ckpt-dir WORK/ckpt [--frames 5]
 
 ``sst`` builds the full-width ``SSTDetector(SSTDetectorConfig())`` with
 weights drawn from a seeded ``torch.Generator`` (no checkpoint is needed). By
@@ -113,6 +117,24 @@ dataset's reader (40,000 kept); beside it the furthest point samplings
 alone (each stage's input and sample counts, its ms, the host loop's steps
 and, on the card, the kernels each step launches).
 
+``--batch N`` (``ococcnet`` / ``ctrl``, predict and ``--train``; 4 by
+default) sets the tracklets per call: the config's ``batch_size`` and
+``synthetic_batch(cfg, batch_size=N)``, as in the JAX CLI. The frame
+families run one frame per call and refuse it by name (the JAX CLI ignores
+it there). ``--ckpt-dir DIR`` times ``predict`` on the weights of the newest
+``step_<N>.pt`` under ``DIR``, a training checkpoint or one published by
+``tools/publish_model.py``: ``training/surgery.py::restore_params`` reads
+it and a strict ``load_state_dict`` puts it into the full-width model over
+its seeded init, so a checkpoint of another config raises with the missing
+/ unexpected keys. Every family but ``annotate`` takes it; ``--train``
+refuses it (the JAX CLI times predict only). Every result line names its
+weights: ``ckpt_step`` and ``params_hash`` (``surgery.tree_hash``, the JAX
+package's hash of the same flax tree), both null on the seeded init. The
+frame families' lines also give their predict outputs' shapes, finiteness,
+valid count and sums (``outputs``) and the predict calls made
+(``predict_calls``, warm-up included). ``--frames`` counts timed calls; the
+JAX CLI's ``--samples``, which counts samples, is not taken.
+
 ``--profile N`` also traces N more frames (steps; for ``ococcnet``
 batches, predict and decode) with ``torch.profiler``, prints the operators
 that take the most device time, and adds the device's busy time per frame
@@ -148,6 +170,7 @@ from ..training.detector_trainer import (FrameBatch, collate_frames,
 from ..training.optim import make_optimizer
 from ..training.seq_trainer import (SeqWindow, make_seq_train_step,
                                     step_generator)
+from ..training.surgery import restore_params, tree_hash
 from ..tools_occ import scenes
 from ..tools_occ.annotate import OccAnnotator
 from ..utils.device import card_info, resolve_device
@@ -165,6 +188,40 @@ def build_sst(cfg: SSTDetectorConfig, device="cuda", seed: int = 0
               ) -> SSTDetector:
     gen = torch.Generator().manual_seed(seed)
     return SSTDetector(cfg, device=device, generator=gen).eval()
+
+
+# the result line's weights where they are the seeded init
+NO_WEIGHTS = {"ckpt_step": None, "params_hash": None}
+
+
+def load_weights(model: torch.nn.Module, ckpt_dir: str | None) -> dict:
+    """Load the newest checkpoint under ``ckpt_dir`` (a training checkpoint
+    or a published one: ``training/surgery.py::restore_params``) into
+    ``model`` strictly, over its seeded init, as the JAX CLI overwrites its
+    init params: a checkpoint of another config raises with PyTorch's
+    missing / unexpected keys or sizes. Returns the weights' names for the
+    result line, ``ckpt_step`` and ``params_hash`` (``surgery.tree_hash``,
+    the JAX package's hash of the same flax tree), both None without
+    ``ckpt_dir``."""
+    if ckpt_dir is None:
+        return dict(NO_WEIGHTS)
+    step, state = restore_params(ckpt_dir)
+    model.load_state_dict(state)
+    return {"ckpt_step": step, "params_hash": tree_hash(state)}
+
+
+def frame_outputs(out) -> dict:
+    """A frame predict's ``(boxes, scores, labels, valid)``: their shapes,
+    whether the valid boxes and every score are finite, the valid count,
+    the sum of every slot's score and that of the valid boxes (names the
+    result)."""
+    boxes, scores, labels, valid = out
+    return {"shapes": [list(x.shape) for x in out],
+            "finite": bool(torch.isfinite(boxes[valid]).all()
+                           and torch.isfinite(scores).all()),
+            "valid": int(valid.sum()),
+            "score_sum": float(scores.double().sum()),
+            "box_sum": float(boxes[valid].double().sum())}
 
 
 def _frame_budget(cfg) -> tuple[int, tuple]:
@@ -278,18 +335,26 @@ def profile_calls(fn, n: int, device: torch.device, unit: str = "frame",
 
 def bench_sst(frames: int, dtype: str = "bfloat16", device="cuda",
               seed: int = 0, num_real: int = 150000,
-              profile_n: int = 0) -> dict:
+              profile_n: int = 0, cfg: SSTDetectorConfig | None = None,
+              ckpt_dir: str | None = None) -> dict:
+    """SST ``predict`` per frame (median over ``frames`` after warm-up) at
+    ``cfg`` (the full width by default) in ``dtype``, on seeded weights or
+    those of ``ckpt_dir`` (:func:`load_weights`); ``predict_calls`` counts
+    every predict call, warm-up included."""
     dev = resolve_device(device)
-    cfg = sst_config(dtype)
+    cfg = sst_config(dtype, cfg)
     model = build_sst(cfg, dev, seed)
+    weights = load_weights(model, ckpt_dir)
     points, mask = frame_tensors(cfg, dev, num_real, seed)
     predict = make_predict_fn(model, "sst")
-    times = time_frames(predict, points, mask, frames)
+    outputs = frame_outputs(predict(points, mask))
+    times = time_frames(predict, points, mask, frames, warmup=1)
     med = statistics.median(times)
     res = {"family": "sst", "dtype": dtype, "frames": frames,
            "num_real_points": num_real, "latency_ms": med,
            "mean_ms": statistics.fmean(times), "fps": 1e3 / med,
-           "unit": "frames/sec", **_card(dev)}
+           "unit": "frames/sec", **weights, "outputs": outputs,
+           "predict_calls": frames + 2 + profile_n, **_card(dev)}
     if profile_n:
         res.update(profile_calls(lambda: predict(points, mask), profile_n,
                                  dev))
@@ -325,6 +390,7 @@ def bench_sst_train(steps: int, dtype: str = "bfloat16", device="cuda",
         times.append((time.perf_counter() - t0) * 1e3)
     med = statistics.median(times)
     res = {"family": "sst", "mode": "train", "dtype": dtype,
+           **NO_WEIGHTS,
            "steps": steps, "num_real_points": num_real, "step_ms": med,
            "mean_ms": statistics.fmean(times),
            "metrics": {k: float(v) for k, v in metrics.items()},
@@ -368,16 +434,18 @@ def budgets(model, points, mask) -> dict:
 def bench_detector(family: str = "centerpoint", frames: int = 20,
                    dtype: str | None = None, device="cuda", seed: int = 0,
                    num_real: int = 150000, profile_n: int = 0,
-                   **config_kw) -> dict:
+                   ckpt_dir: str | None = None, **config_kw) -> dict:
     """Full-width ``predict`` of a frame detector (``centerpoint``, ``fsd``,
-    ``fsd2``) per frame (median over ``frames`` after warm-up), the peak
-    memory over the timed frames and the budgets' counts; ``config_kw``:
-    CenterPoint's ``encoder_layout``."""
+    ``fsd2``) per frame (median over ``frames`` after warm-up), on seeded
+    weights or those of ``ckpt_dir``
+    (:func:`load_weights`), the peak memory over the timed frames and the
+    budgets' counts; ``config_kw``: CenterPoint's ``encoder_layout``."""
     dev = resolve_device(device)
     model = build_frame_detector(family, dtype, dev, seed, **config_kw)
+    weights = load_weights(model, ckpt_dir)
     points, mask = frame_tensors(model.cfg, dev, num_real, seed)
     predict = make_predict_fn(model, family)
-    predict(points, mask)
+    outputs = frame_outputs(predict(points, mask))
     _sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -387,6 +455,8 @@ def bench_detector(family: str = "centerpoint", frames: int = 20,
            **config_kw, "num_real_points": num_real, "latency_ms": med,
            "mean_ms": statistics.fmean(times), "fps": 1e3 / med,
            "unit": "frames/sec", "peak_memory_gib": _peak_gib(dev),
+           **weights, "outputs": outputs,
+           "predict_calls": frames + 2 + profile_n,
            **budgets(model, points, mask), **_card(dev)}
     if profile_n:
         res.update(profile_calls(lambda: predict(points, mask), profile_n,
@@ -425,7 +495,8 @@ def bench_detector_train(family: str = "centerpoint", steps: int = 10,
     times = time_calls(step, steps, dev, warmup=0)
     med = statistics.median(times)
     res = {"family": family, "mode": "train", "dtype": dtype or "float32",
-           **config_kw, "steps": steps, "num_real_points": num_real,
+           **config_kw, **NO_WEIGHTS, "steps": steps,
+           "num_real_points": num_real,
            "step_ms": med,
            "mean_ms": statistics.fmean(times),
            "metrics": {k: float(v) for k, v in metrics.items()},
@@ -450,15 +521,17 @@ def sequence_counts(state, out, n_points: int) -> dict:
 
 def bench_fsdpp(frames: int = 10, dtype: str | None = None, device="cuda",
                 seed: int = 0, num_real: int = 150000,
-                profile_n: int = 0) -> dict:
+                profile_n: int = 0, ckpt_dir: str | None = None) -> dict:
     """Full-width FSD++ over a sequence of ``frames`` synthetic frames (one
     sequence, the memory carried), after an untimed two-frame warm-up
     sequence: each frame's ms and peak memory, the median from the third
     frame on, the peak over the timed sequence and each frame's counts.
     Raises where a frame's boxes or scores are not finite or not of the
-    step's shapes."""
+    step's shapes. Seeded weights, or those of ``ckpt_dir``
+    (:func:`load_weights`)."""
     dev = resolve_device(device)
     model = build_frame_detector("fsdpp", dtype, dev, seed)
+    weights = load_weights(model, ckpt_dir)
     step = make_sequential_predict_fn(model)
     n_slots = model.cfg.fsd.max_clusters
     seq = [frame_tensors(model.cfg, dev, num_real, seed + i)
@@ -498,7 +571,7 @@ def bench_fsdpp(frames: int = 10, dtype: str | None = None, device="cuda",
            "peak_memory_gib": None if peaks[0] is None else max(peaks),
            "frame_peak_gib": peaks,
            "counts": [{k: int(v) for k, v in c.items()} for c in counts],
-           **_card(dev)}
+           **weights, **_card(dev)}
     if profile_n:
         state = [mem]
 
@@ -544,7 +617,8 @@ def bench_fsdpp_train(steps: int = 10, dtype: str | None = None,
     times = time_calls(step, steps, dev, warmup=0)
     med = statistics.median(times)
     res = {"family": "fsdpp", "mode": "train", "dtype": dtype or "float32",
-           "steps": steps, "window": window, "num_real_points": num_real,
+           **NO_WEIGHTS, "steps": steps, "window": window,
+           "num_real_points": num_real,
            "step_ms": med, "mean_ms": statistics.fmean(times),
            "step_ms_all": times,
            "metrics": {k: float(v) for k, v in state["metrics"].items()},
@@ -629,14 +703,18 @@ def occ_options(model: OcOccNetWithLoss, b: TrackletBatch) -> dict:
 def bench_ococcnet(batches: int = 20, dtype: str = "bfloat16",
                    layout: str = "packed", device="cuda", seed: int = 0,
                    profile_n: int = 0, cfg: OcOccNetConfig | None = None,
-                   batch: int = OCC_BATCH) -> dict:
+                   batch: int = OCC_BATCH, ckpt_dir: str | None = None
+                   ) -> dict:
     """OcOccNet serving at full width: ``predict`` per batch of ``batch``
-    tracklets, then the occupancy decode of its queries (not for CTRL,
-    which has no decoder), each timed apart (median over ``batches`` after
-    warm-up)."""
+    tracklets (the config's ``batch_size``, as in the JAX CLI), then the
+    occupancy decode of its queries (not for CTRL, which has no decoder),
+    each timed apart (median over ``batches`` after warm-up), on seeded
+    weights or those of ``ckpt_dir`` (:func:`load_weights`)."""
     dev = resolve_device(device)
-    cfg = ococcnet_config(dtype, layout, cfg)
+    cfg = dataclasses.replace(ococcnet_config(dtype, layout, cfg),
+                              batch_size=batch)
     model = build_ococcnet(cfg, dev, seed)
+    weights = load_weights(model, ckpt_dir)
     b, queries = tracklet_batch(cfg, dev, batch, seed)
     with_occ = cfg.variant == "ococc"
 
@@ -648,10 +726,12 @@ def bench_ococcnet(batches: int = 20, dtype: str = "bfloat16",
 
     with torch.inference_mode():
         out = model.predict(b)
-        shapes = {k: list(v.shape) for k, v in out.items()}
         if with_occ:
-            occ = model.decode_occ_queries(out["shape_latent"], queries)
-            shapes["occ_logits"] = list(occ.shape)
+            out = {**out, "occ_logits": model.decode_occ_queries(
+                out["shape_latent"], queries)}
+        shapes = {k: list(v.shape) for k, v in out.items()}
+        finite = all(bool(torch.isfinite(v).all()) for v in out.values()
+                     if v.is_floating_point())
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         times = time_calls(lambda: model.predict(b), batches, dev)
@@ -668,8 +748,8 @@ def bench_ococcnet(batches: int = 20, dtype: str = "bfloat16",
            "unit": "tracklets/sec",
            "decode_ms": statistics.median(dec) if with_occ else None,
            "decode_queries": queries.shape[2], **layout_points(model, b),
-           "peak_memory_gib": _peak_gib(dev),
-           "shapes": shapes, **_card(dev)}
+           "peak_memory_gib": _peak_gib(dev), **weights,
+           "shapes": shapes, "finite": finite, **_card(dev)}
     if profile_n:
         res.update(profile_calls(serve, profile_n, dev, unit="batch"))
     return res
@@ -686,7 +766,8 @@ def bench_ococcnet_train(steps: int = 10, dtype: str = "bfloat16",
     ``warmup``; one more step gives the metrics. ``opt``: the optimizer
     layout, ``tree``, ``flat`` or ``stacked``."""
     dev = resolve_device(device)
-    cfg = ococcnet_config(dtype, layout, cfg)
+    cfg = dataclasses.replace(ococcnet_config(dtype, layout, cfg),
+                              batch_size=batch)
     total = warmup + steps + 1 + profile_n
     state = create_train_state(cfg, total, dev, seed,
                                flat_opt=opt == "flat",
@@ -708,7 +789,7 @@ def bench_ococcnet_train(steps: int = 10, dtype: str = "bfloat16",
     med = statistics.median(times)
     res = {"family": "ococcnet", **occ_options(model, b), "mode": "train",
            "dtype": dtype, "eval_layout": layout, "opt": opt, "batch": batch,
-           "steps": steps,
+           **NO_WEIGHTS, "steps": steps,
            "step_ms": med, "mean_ms": statistics.fmean(times),
            "fps": batch * 1e3 / med, "unit": "tracklets/sec",
            "metrics": metrics, **layout_points(model, b),
@@ -834,13 +915,16 @@ def fps_costs(cfg, device: torch.device, reps: int = 3) -> dict:
 
 def bench_votenet(frames: int = 10, train: bool = False,
                   dataset: str = "scannet", device="cuda", seed: int = 0,
-                  profile_n: int = 0, warmup: int = 2) -> dict:
+                  profile_n: int = 0, warmup: int = 2,
+                  ckpt_dir: str | None = None) -> dict:
     """Full-width VoteNet ``predict`` per frame, or training steps
     (forward, loss, backward, clip, AdamW at ``train_detector``'s
     defaults), on one written scene: the median over ``frames`` after
-    ``warmup``, the peak memory and the furthest point samplings' costs."""
+    ``warmup``, the peak memory and the furthest point samplings' costs.
+    ``ckpt_dir`` (predict only): the weights (:func:`load_weights`)."""
     dev = resolve_device(device)
     model = build_votenet(dataset, dev, seed)
+    weights = load_weights(model, ckpt_dir)
     batch = indoor_batch(dataset, dev, seed)
     points, mask = batch.points[0], batch.points_mask[0]
     if train:
@@ -869,7 +953,7 @@ def bench_votenet(frames: int = 10, train: bool = False,
     res = {"family": "votenet", "dataset": dataset,
            "mode": "train" if train else "predict",
            "num_classes": model.cfg.num_classes,
-           "with_yaw": model.cfg.with_yaw, "frames": frames,
+           "with_yaw": model.cfg.with_yaw, "frames": frames, **weights,
            "points": int(mask.sum()), f"ms_per_{unit}": med,
            "mean_ms": statistics.fmean(times),
            "peak_memory_gib": _peak_gib(dev),
@@ -877,6 +961,28 @@ def bench_votenet(frames: int = 10, train: bool = False,
     if profile_n:
         res.update(profile_calls(call, profile_n, dev, unit=unit))
     return res
+
+
+FRAME_FAMILIES = ("sst", "centerpoint", "fsd", "fsd2", "fsdpp", "annotate",
+                  "votenet")
+
+
+def refuse(args: argparse.Namespace) -> None:
+    """The flag combinations the benchmark does not time, refused by name
+    before a model is built."""
+    if args.remat and args.eval_layout != "dense":
+        raise SystemExit("--remat applies to --eval-layout dense (the "
+                         "packed layout ignores remat_sir)")
+    if args.batch is not None and args.family in FRAME_FAMILIES:
+        raise SystemExit(f"--batch applies to ococcnet / ctrl: {args.family} "
+                         f"runs one frame per call")
+    if args.ckpt_dir is not None and args.train:
+        raise SystemExit("--ckpt-dir times predict only: --train starts "
+                         "from the seeded init")
+    if args.ckpt_dir is not None and args.family == "annotate":
+        raise SystemExit("--ckpt-dir: annotate runs no model")
+    if args.opt != "tree" and not args.train:
+        raise SystemExit("--opt applies to --train")
 
 
 def main(argv=None) -> None:
@@ -888,6 +994,13 @@ def main(argv=None) -> None:
                    help="timed frames (with --train: timed steps; "
                         "ococcnet: timed batches; annotate: timed "
                         "tracklets)")
+    p.add_argument("--batch", type=int, default=None,
+                   help=f"ococcnet / ctrl: tracklets per call (default "
+                        f"{OCC_BATCH})")
+    p.add_argument("--ckpt-dir", default=None,
+                   help="predict on the newest step_<N>.pt under this "
+                        "directory (a training or a published checkpoint) "
+                        "instead of seeded random weights")
     p.add_argument("--eval-layout", choices=LAYOUTS, default="packed",
                    help="ococcnet / ctrl: point layout")
     p.add_argument("--segmentor", choices=["tiny", "full"], default=None,
@@ -918,13 +1031,13 @@ def main(argv=None) -> None:
                    help="also trace N frames (or steps) with "
                         "torch.profiler")
     args = p.parse_args(argv)
-    if args.remat and args.eval_layout != "dense":
-        raise SystemExit("--remat applies to --eval-layout dense (the "
-                         "packed layout ignores remat_sir)")
+    refuse(args)
+    # predict only (refuse): the weights of --ckpt-dir
+    ckpt = {} if args.ckpt_dir is None else {"ckpt_dir": args.ckpt_dir}
     if args.family == "votenet":
         print(json.dumps(bench_votenet(args.frames, args.train, args.dataset,
-                                       args.device,
-                                       profile_n=args.profile)))
+                                       args.device, profile_n=args.profile,
+                                       **ckpt)))
         return
     if args.family == "annotate":
         print(json.dumps(bench_annotate(args.frames, args.device,
@@ -934,7 +1047,7 @@ def main(argv=None) -> None:
         bench = bench_fsdpp_train if args.train else bench_fsdpp
         print(json.dumps(bench(args.frames, args.dtype, args.device,
                                num_real=args.num_real,
-                               profile_n=args.profile)))
+                               profile_n=args.profile, **ckpt)))
         return
     if args.family in ("centerpoint", "fsd", "fsd2"):
         if args.family == "centerpoint" and args.dtype not in (
@@ -946,22 +1059,23 @@ def main(argv=None) -> None:
         bench = bench_detector_train if args.train else bench_detector
         print(json.dumps(bench(args.family, args.frames, args.dtype,
                                args.device, num_real=args.num_real,
-                               profile_n=args.profile, **kw)))
+                               profile_n=args.profile, **ckpt, **kw)))
         return
     args.dtype = args.dtype or "bfloat16"
     if args.family in ("ococcnet", "ctrl"):
-        kw = {"opt": args.opt} if args.train else {}
-        if args.opt != "tree" and not args.train:
-            raise SystemExit("--opt applies to --train")
+        kw = {"opt": args.opt} if args.train else ckpt
         bench = bench_ococcnet_train if args.train else bench_ococcnet
         print(json.dumps(bench(
             args.frames, args.dtype, args.eval_layout, args.device,
             profile_n=args.profile, cfg=occ_bench_config(
-                args.family, args.segmentor, args.remat), **kw)))
+                args.family, args.segmentor, args.remat),
+            batch=OCC_BATCH if args.batch is None else args.batch,
+            **kw)))
         return
     bench = bench_sst_train if args.train else bench_sst
     print(json.dumps(bench(args.frames, args.dtype, args.device,
-                           num_real=args.num_real, profile_n=args.profile)))
+                           num_real=args.num_real, profile_n=args.profile,
+                           **ckpt)))
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@ backward (moved out of ``test_torch_window_attention.py``).
 A file of at most four tests: pytest-xdist's ``--dist loadfile`` hands
 out the files with the most tests first, so a costly case in a large
 file would start ahead of the suite's longest file."""
-import jax.numpy as jnp
+import jax
 import numpy as np
 import pytest
 import torch
@@ -23,8 +23,10 @@ def test_bwd_plain_matches_the_chunked_backward(chunk):
     chunks smaller than W on both sides."""
     W, T, C, H = 11, 24, 32, 4
     q, k, v, mask, g = _bwd_inputs(W, T, C, seed=5, fully_masked=(2,))
-    ref = [np.asarray(x) for x in xla_chunked_window_attention_bwd(
-        *map(jnp.asarray, (q, k, v, mask, g)), H, chunk=chunk)]
+    # one jitted JAX program (eager JAX compiles one per op and shape)
+    ref = [np.asarray(x) for x in jax.jit(
+        xla_chunked_window_attention_bwd, static_argnums=(5, 6))(
+        q, k, v, mask, g, H, chunk)]
     got = wa.window_attention_bwd_plain(
         *map(torch.from_numpy, (q, k, v, mask, g)), H, chunk=chunk)
     live = mask.any(1)

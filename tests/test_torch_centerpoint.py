@@ -90,6 +90,16 @@ def torch_model(params, cfg=TINY):
     return model.eval()
 
 
+def param_tree(cfg=TINY):
+    """The flax tree of ``cfg``'s model as ``convert`` writes it for the
+    port's (its shapes without tracing the JAX ``init``, which costs
+    seconds)."""
+    return convert.state_dict_to_flax(tcp.DynamicCenterPoint(
+        tcp.CenterPointConfig(**{f: getattr(cfg, f)
+                                 for f in cfg.__dataclass_fields__}),
+        device="cpu").state_dict())
+
+
 def assert_close(got, ref, what, rtol=FWD_RTOL):
     got = np.asarray(got)
     ref = np.asarray(ref)
@@ -107,8 +117,7 @@ def reference():
     points, mask, boxes, labels, valid = cp_frame(TINY, seed=0)
     boxes[1, :2] = (9.5, -8.0)
     model = jcp.DynamicCenterPoint(TINY)
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), points, mask)
-    params = random_params(shapes["params"], seed=1)
+    params = random_params(param_tree(), seed=1)
 
     def loss_fn(p):
         losses, state = model.apply(

@@ -29,7 +29,8 @@ from objectcentricocccompletion_torch.tools import test as tcli
 from objectcentricocccompletion_torch.tools import train as ttrain
 from objectcentricocccompletion_torch.training import detector_trainer as tdt
 from objectcentricocccompletion_torch.training.optim import make_optimizer
-from tests.test_torch_centerpoint import TINY, random_params, torch_model
+from tests.test_torch_centerpoint import (TINY, param_tree, random_params,
+                                          torch_model)
 from tests.test_torch_window_attention import one_torch_thread  # noqa: F401
 
 TWIN_STEPS = 5
@@ -54,9 +55,7 @@ def test_twin_training(frames):
 
     model = jcp.DynamicCenterPoint(TINY)
     first = next(jloader)
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
-                            first.points[0], first.points_mask[0])
-    params = random_params(shapes["params"], 3)
+    params = random_params(param_tree(), 3)
     tx, _ = jax_make_optimizer(1e-4, TWIN_STEPS)
     mesh = make_mesh(jax.devices()[:1])
     state = jax.device_put(jdt.DetectorState(

@@ -4,9 +4,9 @@ also where 16 iterations do not converge; ``compact_labels`` with its
 budget; ``points_in_boxes`` with ``extra_wlh``; the base-point coder and
 its round trip; the scatter-form segment reductions with empty segments,
 and a maximum shared by two rows splitting its gradient as ``jax.grad``
-does."""
+does. Each JAX reference is jitted: eager JAX compiles a program per op
+and shape."""
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -48,7 +48,8 @@ def test_connected_components_equal_the_jax_package(seed):
     snake = np.zeros((200, 3), np.int32)
     snake[:, 0] = np.random.RandomState(seed).permutation(200)
     ok = np.ones(200, bool)
-    ref = np.asarray(jcl.connected_components(snake, ok, (200, 1, 1)))
+    ref = np.asarray(jax.jit(jcl.connected_components, static_argnums=2)(
+        snake, ok, (200, 1, 1)))
     got = tcl.connected_components(torch.from_numpy(snake),
                                    torch.from_numpy(ok), (200, 1, 1))
     np.testing.assert_array_equal(got.numpy(), ref)
@@ -74,7 +75,8 @@ def test_connected_components_dist_equal_the_jax_package(seed):
         assert 2 <= len(np.unique(ref[valid])) < valid.sum()
         # the budget keeps the components of the smallest ids
         for budget in (4, 200):
-            rl, rn = jcl.compact_labels(jnp.asarray(ref), budget)
+            rl, rn = jax.jit(jcl.compact_labels, static_argnums=1)(
+                ref, budget)
             gl, gn = tcl.compact_labels(got, budget)
             np.testing.assert_array_equal(gl.numpy(), np.asarray(rl))
             assert int(gn) == int(rn)
@@ -88,8 +90,8 @@ def test_points_in_boxes_and_point_coder_equal_the_jax_package():
                            -1).astype(np.float32)
     pts = rng.uniform(-7, 7, (500, 3)).astype(np.float32)
     for extra in ((0.0, 0.0, 0.0), (0.5, 0.5, 0.5)):
-        ref = np.asarray(jax.vmap(lambda b: jboxes.points_in_boxes(
-            pts, b, extra))(boxes))
+        ref = np.asarray(jax.jit(jax.vmap(lambda b: jboxes.points_in_boxes(
+            pts, b, extra)))(boxes))
         got = tboxes.points_in_boxes(torch.from_numpy(pts),
                                      torch.from_numpy(boxes), extra)
         np.testing.assert_array_equal(got.numpy(), ref)
@@ -98,10 +100,11 @@ def test_points_in_boxes_and_point_coder_equal_the_jax_package():
     enc = tcoder.point_encode(torch.from_numpy(boxes),
                               torch.from_numpy(base))
     np.testing.assert_allclose(enc.numpy(), np.asarray(
-        jcoder.point_encode(boxes, base)), rtol=1e-6, atol=1e-6)
+        jax.jit(jcoder.point_encode)(boxes, base)), rtol=1e-6, atol=1e-6)
     dec = tcoder.point_decode(enc, torch.from_numpy(base))
     np.testing.assert_allclose(dec.numpy(), np.asarray(
-        jcoder.point_decode(np.asarray(enc), base)), rtol=1e-6, atol=1e-6)
+        jax.jit(jcoder.point_decode)(np.asarray(enc), base)), rtol=1e-6,
+        atol=1e-6)
     wrapped = np.arctan2(np.sin(boxes[:, 6]), np.cos(boxes[:, 6]))
     np.testing.assert_allclose(dec[:, :6].numpy(), boxes[:, :6], atol=1e-5)
     np.testing.assert_allclose(dec[:, 6].numpy(), wrapped, atol=1e-5)
@@ -118,7 +121,8 @@ def test_segment_reductions_equal_the_jax_package():
     seg[seg == 3] = 4                      # segment 3 stays empty
     tx, tseg = torch.from_numpy(x), torch.from_numpy(seg)
     for name in ("segment_sum", "segment_mean", "segment_max"):
-        ref = np.asarray(getattr(jmasked, name)(x, seg, 8))
+        ref = np.asarray(jax.jit(getattr(jmasked, name),
+                                 static_argnums=2)(x, seg, 8))
         got = getattr(tmasked, name)(tx, tseg, 8)
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6,
                                    err_msg=name)
@@ -126,8 +130,8 @@ def test_segment_reductions_equal_the_jax_package():
     # a maximum two rows share splits its gradient between them
     x = np.float32([[1.0], [1.0], [0.5], [2.0]])
     seg = np.int32([0, 0, 0, 1])
-    ref = np.asarray(jax.grad(lambda a: jmasked.segment_max(
-        a, seg, 2).sum())(x))
+    ref = np.asarray(jax.jit(jax.grad(lambda a: jmasked.segment_max(
+        a, seg, 2).sum()))(x))
     tx = torch.from_numpy(x).requires_grad_()
     tmasked.segment_max(tx, torch.from_numpy(seg).long(), 2).sum().backward()
     np.testing.assert_array_equal(tx.grad.numpy(), ref)

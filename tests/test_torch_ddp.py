@@ -81,15 +81,26 @@ def run_ranks(argvs, cwd=REPO):
     return outs
 
 
-def run_worker(case, out, world=2):
+def run_worker(cases, out, world=2):
+    """``cases`` of ``tests/torch_ddp_worker.py`` in turn, in one launch of
+    ``world`` ranks: ``{case: [rank 0's result, ...]}``."""
     port = free_port()
     run_ranks([[sys.executable, os.path.join(REPO, "tests",
-                                             "torch_ddp_worker.py"), case,
-                str(r), str(world), str(port), str(out)]
+                                             "torch_ddp_worker.py"),
+                ",".join(cases), str(r), str(world), str(port), str(out)]
                for r in range(world)])
     # the files of this test's own workers (metrics hold numpy scalars)
-    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
-            for r in range(world)]
+    return {case: [torch.load(os.path.join(out, f"{case}.rank{r}.pt"),
+                              weights_only=False) for r in range(world)]
+            for case in cases}
+
+
+@pytest.fixture(scope="module")
+def rank_runs(tmp_path_factory):
+    """The OcOccNet (dropout on and off) and SST cases on two gloo ranks,
+    in one launch."""
+    return run_worker(("ococc", "ococc_nodrop", "sst"),
+                      tmp_path_factory.mktemp("ranks"))
 
 
 def assert_like_one_process(ranks, ref):
@@ -111,7 +122,7 @@ def assert_like_one_process(ranks, ref):
         assert torch.equal(p, ranks[1]["params"][n]), n
 
 
-def test_two_ranks_equal_the_global_batch_with_dropout(tmp_path):
+def test_two_ranks_equal_the_global_batch_with_dropout(rank_runs):
     # the ranks' masks differ, and together are the global batch's draw
     base = torch.tensor([5, 3])
     ones = torch.ones(4, 3, 8)
@@ -124,7 +135,7 @@ def test_two_ranks_equal_the_global_batch_with_dropout(tmp_path):
     assert cfg.fusion_dropout > 0 and cfg.attn_dropout > 0
     pos = (batch.gt_valid.float().sum((1,)))
     assert float(pos[:2].sum()) != float(pos[2:].sum())
-    ranks = run_worker("ococc", tmp_path)
+    ranks = rank_runs["ococc"]
     assert_like_one_process(ranks, worker.ococc_step(cfg, batch))
     # make_train_multi_step: K steps over a [K, B] batch, the metrics
     # stacked [K], equal to K lone steps (the dropout counter follows them)
@@ -177,14 +188,14 @@ def _jax_step(cfg, batch, lr_steps=10):
             convert.flax_to_state_dict(jax.device_get(grads)))
 
 
-def test_two_ranks_equal_the_jax_two_device_step(tmp_path):
+def test_two_ranks_equal_the_jax_two_device_step(rank_runs):
     """Dropout off (the JAX masks come from flax's key stream): losses,
     metrics and ``grad_norm`` at 1e-4, every gradient at the 1e-4 bar of
     ``tests/test_grad_transplant_parity.py``, parameters within 2 lr of
     AdamW's first step (its sign may differ where a gradient is float
     noise around 0) plus rounding."""
     cfg, batch = worker.ococc_case(dropout=False)
-    ranks = run_worker("ococc_nodrop", tmp_path)
+    ranks = rank_runs["ococc_nodrop"]
     params, aux, grads = _jax_step(cfg, batch)
     got = ranks[0]
     assert set(got["metrics"]) == set(aux)
@@ -202,8 +213,8 @@ def test_two_ranks_equal_the_jax_two_device_step(tmp_path):
         assert float((got["params"][n] - p).abs().max()) <= 2 * lr + 1e-6, n
 
 
-def test_sst_two_ranks_equal_the_global_batch(tmp_path):
-    ranks = run_worker("sst", tmp_path)
+def test_sst_two_ranks_equal_the_global_batch(rank_runs):
+    ranks = rank_runs["sst"]
     assert_like_one_process(ranks, worker.sst_step(worker.sst_case()))
 
 

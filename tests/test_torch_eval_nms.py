@@ -65,7 +65,7 @@ def test_iou_matrices_nms_bev_and_host_nms_match():
         assert (got.numpy() > 0.05).sum() > len(a) + 20, name
     scores = rng.rand(40).astype(np.float32)
     jnms = jax.jit(jboxes.nms_bev, static_argnums=(2, 3))
-    iou = np.asarray(jboxes.pairwise_iou_bev(a, a))
+    iou = np.asarray(jax.jit(jboxes.pairwise_iou_bev)(a, a))
     for thresh, max_out in ((0.1, 12), (0.3, 50)):
         assert _far_from(iou, thresh)
         keep, valid = tboxes.nms_bev(torch.from_numpy(a),

@@ -83,10 +83,12 @@ def jax_capture(cfg, params, points, mask):
         out, {k: inter[k][0] for k in ("segment", "group") if k in inter}))
 
 
-def init_params(cfg, points, mask, seed):
-    shapes = jax.eval_shape(jfsd.FSD(cfg).init, jax.random.PRNGKey(0),
-                            points, mask)
-    return random_params(shapes["params"], seed)
+def init_params(cfg, seed):
+    """Seeded flax params over the tree that ``convert`` writes for the
+    port's model (tracing the JAX ``init`` for its shapes costs
+    seconds)."""
+    return random_params(convert.state_dict_to_flax(tfsd.FSD(
+        port_config(cfg), device="cpu").state_dict()), seed)
 
 
 def assert_close(got, ref, what, rtol=FWD_RTOL):
@@ -110,7 +112,7 @@ def compare_outputs(out, ref, what):
 @pytest.fixture(scope="module")
 def reference():
     points, mask, *_ = fsd_frame(TINY, seed=4)
-    params = init_params(TINY, points, mask, seed=2)
+    params = init_params(TINY, seed=2)
     out, inter = jax_capture(TINY, params, points, mask)
     return params, points, mask, out, inter
 
@@ -167,7 +169,7 @@ def test_cluster_forward_equals_the_jax_forward(reference):
 def test_fsdv2_forward_equals_the_jax_package():
     cfg = dataclasses.replace(TINY, use_clustering=False)
     points, mask, *_ = fsd_frame(cfg, seed=2)
-    params = init_params(cfg, points, mask, seed=3)
+    params = init_params(cfg, seed=3)
     assert "sir" not in params and "mixer1" in params
     out, _ = jax_capture(cfg, params, points, mask)
     model = torch_model(params, cfg)

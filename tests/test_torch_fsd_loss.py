@@ -86,7 +86,7 @@ def test_fsd_loss_and_gradients_equal_the_jax_package(clustering):
     if not clustering:
         # no clutter: FSDv2's first voxels in key order then lie in boxes
         frame[1][:800] = False
-    params = init_params(cfg, frame[0], frame[1], seed=6)
+    params = init_params(cfg, seed=6)
     # short votes, so that clusters stay in their boxes: positives for the
     # regression losses
     params["seg_head"]["Dense_1"]["kernel"] *= 0.1

@@ -30,7 +30,8 @@ from objectcentricocccompletion_torch.tools import train as ttrain
 from objectcentricocccompletion_torch.training import detector_trainer as tdt
 from objectcentricocccompletion_torch.training.optim import make_optimizer
 from tests.test_torch_fsd import random_params
-from tests.test_torch_fsd_two_stage import TINY2, torch_two_stage
+from tests.test_torch_fsd_two_stage import (TINY2, param_tree,
+                                            torch_two_stage)
 from tests.test_torch_window_attention import one_torch_thread  # noqa: F401
 
 TWIN_STEPS = 5
@@ -70,9 +71,7 @@ def test_two_stage_twin_training(frames):
 
     model = JaxTwoStageWithLoss(TINY2)
     first = next(jloader)
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
-                            first.points[0], first.points_mask[0])
-    params = random_params(shapes["params"], 3)
+    params = random_params(param_tree(), 3)
     tx, _ = jax_make_optimizer(TWIN_LR, TWIN_STEPS)
     mesh = make_mesh(jax.devices()[:1])
     state = jax.device_put(jdt.DetectorState(

@@ -50,20 +50,34 @@ def torch_two_stage(params):
     return model
 
 
+def param_tree():
+    """The flax tree of ``TINY2``'s model as ``convert`` writes it for the
+    port's (its shapes without tracing the JAX ``init``, which costs
+    seconds)."""
+    return convert.state_dict_to_flax(tts.TwoStageFSD(
+        port_two_stage_config(TINY2), device="cpu").state_dict())
+
+
 @pytest.fixture(scope="module")
 def reference():
     """A frame whose GT boxes sit on four of the stage-1 proposals (cars
     and a pedestrian, moved by a few cm), so that stage 2 has positives
     for its regression and corner losses; the params; the JAX losses,
-    intermediates and gradients."""
+    intermediates and gradients; the JAX forward on the frame and its
+    stage-1 grouping (one jitted forward serves both: the GT does not
+    reach it)."""
     frame = list(fsd_frame(TINY2.fsd, seed=7))
     model = jts.TwoStageFSD(TINY2)
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), frame[0],
-                            frame[1])
-    params = random_params(shapes["params"], seed=8)
+    params = random_params(param_tree(), seed=8)
     params["stage1"]["seg_head"]["Dense_1"]["kernel"] *= 0.1
-    out = jax.jit(lambda p, x, m: model.apply({"params": p}, x, m))(
+    out, state = jax.jit(lambda p, x, m: model.apply(
+        {"params": p}, x, m, mutable=["intermediates"],
+        capture_intermediates=lambda mdl, name: (
+            mdl.name == "stage1" and name == "group")))(
         params, frame[0], frame[1])
+    out = jax.tree_util.tree_map(np.asarray, out)
+    grouping = grouping_of(jax.tree_util.tree_map(
+        np.asarray, state["intermediates"]["stage1"]))
     ok = np.asarray(out["roi_nonempty"])
     cls = np.asarray(out["cluster_class"])
     pick = ([int(i) for i in np.nonzero(ok & (cls == 0))[0][:3]]
@@ -76,19 +90,11 @@ def reference():
                  np.arange(len(boxes)) < 4]
     losses, inter, grads = jax_loss_and_grads(
         model, jts.two_stage_loss, params, tuple(frame), stage1="stage1")
-    return params, tuple(frame), losses, inter, grads
+    return params, tuple(frame), losses, inter, grads, (out, grouping)
 
 
 def test_forward_and_pool_equal_the_jax_package(reference):
-    params, (points, mask, *_), *_ = reference
-    model = jts.TwoStageFSD(TINY2)
-    out, state = jax.jit(lambda p, x, m: model.apply(
-        {"params": p}, x, m, mutable=["intermediates"],
-        capture_intermediates=lambda mdl, name: (
-            mdl.name == "stage1" and name == "group")))(params, points, mask)
-    out = jax.tree_util.tree_map(np.asarray, out)
-    grouping = grouping_of(jax.tree_util.tree_map(
-        np.asarray, state["intermediates"]["stage1"]))
+    params, (points, mask, *_), *_, (out, grouping) = reference
     tmodel = torch_two_stage(params).eval()
     pts, msk = torch.from_numpy(points), torch.from_numpy(mask)
     with torch.no_grad():
@@ -125,7 +131,7 @@ def test_two_stage_loss_and_gradients_equal_the_jax_package(reference):
     """Every loss entry of both stages (the corner loss and the stage-2
     regression among them, on positives) and every parameter's
     gradient."""
-    params, frame, losses, inter, grads = reference
+    params, frame, losses, inter, grads, _ = reference
     assert float(losses["num_pos_rois2"]) >= 2
     assert float(losses["loss_corner2"]) > 0
     model = torch_two_stage(params).train()

@@ -150,6 +150,13 @@ def rank_runs(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def one_process():
+    """The packed case with dropout in one process on the global batch
+    (one run, shared by the rank tests)."""
+    return worker.mp_step(*worker.packed_case(dropout=True))
+
+
+@pytest.fixture(scope="module")
 def jax_ref():
     """The packed case without dropout on the JAX side, from the port's
     init (seed 0): its config, batch, params, AdamW, model and the
@@ -224,31 +231,31 @@ def assert_like_jax(cfg, got, jax_run):
             2 * cfg.base_lr + 1e-6, n
 
 
-def test_tp_sp_ranks_equal_one_process_and_the_jax_step(rank_runs, jax_ref):
+def test_tp_sp_ranks_equal_one_process_and_the_jax_step(rank_runs, jax_ref,
+                                                         one_process):
     """Mesh (1, 2), ``tp_min_dim=32``, sequence parallelism on the packed
     layout: both ranks equal one process on the batch (dropout on), and
     the JAX step on a 1 x 2 mesh with the same options (dropout off)."""
     ranks = rank_runs["tp_sp"]
-    cfg, batch = worker.packed_case(dropout=True)
     assert ranks[0][True]["dims"] and all(
         d == 0 for d in ranks[0][True]["dims"].values())
     # the SP setting lives only while a step runs
     assert not any(r[d]["sp_after_step"] for r in ranks for d in r)
     assert_whole_checkpoint([r[True] for r in ranks])
-    assert_like_one_process([r[True] for r in ranks],
-                            worker.mp_step(cfg, batch))
+    assert_like_one_process([r[True] for r in ranks], one_process)
     assert_like_jax(jax_ref[0], ranks[0][False], _jax_step(
         jax_ref, jtrain.make_mesh_2d(1, 2, jax.devices()[:2]),
         tp_min_dim=32, sequence_parallel=True))
 
 
-def test_fsdp_ranks_equal_one_process_and_the_jax_step(rank_runs, jax_ref):
+def test_fsdp_ranks_equal_one_process_and_the_jax_step(rank_runs, jax_ref,
+                                                       one_process):
     """Mesh (2, 1), ``fsdp_min_size=256``: each rank's parameter and moment
     shards have the rule's shapes; both ranks equal one process on the
     global batch (dropout on), and the JAX FSDP step on 2 devices (dropout
     off)."""
     ranks = rank_runs["fsdp"]
-    cfg, batch = worker.packed_case(dropout=True)
+    cfg, _ = worker.packed_case(dropout=True)
     model = OcOccNetWithLoss(cfg, "cpu")
     rule = ttrain.param_shardings_fsdp(model, {"data": 2}, min_size=256)
     for res in ranks:
@@ -261,8 +268,7 @@ def test_fsdp_ranks_equal_one_process_and_the_jax_step(rank_runs, jax_ref):
                 shape[rule[n]] //= 2
             assert got["shards"][n] == tuple(shape) == got["moments"][n], n
     assert_whole_checkpoint([r[True] for r in ranks])
-    assert_like_one_process([r[True] for r in ranks],
-                            worker.mp_step(cfg, batch))
+    assert_like_one_process([r[True] for r in ranks], one_process)
     assert_like_jax(jax_ref[0], ranks[0][False], _jax_step(
         jax_ref, jtrain.make_mesh(jax.devices()[:2]), fsdp=True,
         fsdp_min_size=256))

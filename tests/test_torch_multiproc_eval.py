@@ -32,7 +32,7 @@ def test_two_rank_evaluation_equals_one_process(tmp_path):
     metrics)."""
     write_synthetic_dataset(str(tmp_path / "data"), num_tracklets=5,
                             track_len=12, seed=4)
-    ranks = run_worker("eval", tmp_path)
+    ranks = run_worker(("eval",), tmp_path)["eval"]
     one = worker.eval_run(str(tmp_path / "data"), str(tmp_path / "one"))
     ev = tmp_path / "eval"
     shards = [(ev / f"results.shard{r}.bin").read_bytes() for r in (0, 1)]

@@ -4,7 +4,7 @@ Inputs are made from a numpy seed (the port's ``synthetic_batch``, which
 gives the JAX package's arrays) and go through the JAX function and its
 counterpart in ``objectcentricocccompletion_torch``; weights cross over
 through ``convert.py``. One JAX parameter tree per variant (shapes from
-``jax.eval_shape``, values from numpy) and one jitted JAX forward per
+the converter's tree of the port's model, values from numpy) and one jitted JAX forward per
 config are shared by the whole file. predict + decode per layout, the bf16
 flow and the full-tree converter round trip are in
 ``test_torch_ococcnet_serve.py`` and ``test_torch_ococcnet_full.py``.
@@ -118,6 +118,15 @@ def _param_shapes(cfg, batch):
         {"params": jax.random.PRNGKey(0)}, b, method=_serve), batch)["params"]
 
 
+def _tree_shapes(cfg):
+    """The parameter tree of ``cfg``'s model as ``convert`` writes it for
+    the port's: the JAX tree without tracing its ``init``, which costs
+    seconds (``test_torch_ococcnet_full.py`` holds the two trees equal at
+    full width)."""
+    return convert.state_dict_to_flax(tnet.OcOccNetWithLoss(
+        _torch_config(cfg), "cpu").state_dict())
+
+
 _PARAMS = {}
 
 
@@ -125,9 +134,8 @@ def _params(variant):
     """One numpy parameter tree per variant, shared by the file."""
     if variant not in _PARAMS:
         cfg = CONFIGS["ctrl" if variant == "ctrl" else "dense"]
-        shapes = _param_shapes(cfg, _jbatch(_batch(cfg)))
         _PARAMS[variant] = jax.tree_util.tree_map(
-            np.asarray, _random_params(shapes, 7))
+            np.asarray, _random_params(_tree_shapes(cfg), 7))
     return _PARAMS[variant]
 
 

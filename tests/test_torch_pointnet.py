@@ -126,9 +126,9 @@ def test_interpolation_and_score_assembly_match():
                 for a in aggs]
         return out, sum(jnp.sum(jnp.sin(o)) for o in out)
 
-    ref, vjp = jax.vjp(lambda *a: ref_fn(*a)[1], feats, scores, pf)
-    ref_grads = vjp(jnp.ones(()))
-    ref_out = jax.jit(lambda *a: ref_fn(*a)[0])(feats, scores, pf)
+    # one jitted reference: eager JAX compiles a program per op and shape
+    ref_out, ref_grads = jax.jit(lambda *a: (ref_fn(*a)[0], jax.grad(
+        lambda *b: ref_fn(*b)[1], argnums=(0, 1, 2))(*a)))(feats, scores, pf)
     tfe, tsc, tpf = (x.requires_grad_() for x in _t(feats, scores, pf))
     tq, tp, tm, tcf, tk = _t(q, pts, mask, cf, kidx)
     out = [pn.three_interpolate(tq, tp, tm, tfe)]

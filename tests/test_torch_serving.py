@@ -48,7 +48,8 @@ def test_bundle_equals_live_predict_and_the_jax_bundle(tmp_path):
     batch = _batch(TINY)
     out = save_bundle(str(tmp_path / "port"), _torch_config(TINY),
                       model.state_dict(), batch, device="cpu")
-    served = load_bundle(out).run(batch)
+    bundle = load_bundle(out)
+    served = bundle.run(batch)
     _assert_equal(served, _live(model, batch))
     jdir = jexport.save_bundle(str(tmp_path / "jax"), TINY, params,
                                _jbatch(batch), platforms=("cpu",))
@@ -56,7 +57,7 @@ def test_bundle_equals_live_predict_and_the_jax_bundle(tmp_path):
     for k in OUT_KEYS:
         np.testing.assert_allclose(served[k].numpy(), np.asarray(jout[k]),
                                    atol=JAX_TOL, rtol=0, err_msg=k)
-    meta = load_bundle(out).meta
+    meta = bundle.meta
     assert meta["device"] == "cpu" and meta["config"]["d_model"] == \
         TINY.d_model
     assert meta["batch_shapes"]["points"] == list(batch.points.shape)

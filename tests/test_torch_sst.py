@@ -5,7 +5,7 @@ counterpart in ``objectcentricocccompletion_torch``; weights cross over
 through ``convert.py``. Index outputs (voxel coords, point-to-voxel maps,
 window slots and ranks) must be equal exactly; every float tolerance is
 stated where it is used. One JAX parameter tree (shapes from
-``jax.eval_shape``, values from numpy) and one jitted JAX apply are shared
+the converter's tree of the port's model, values from numpy) and one jitted JAX apply are shared
 by the whole file. The window partition, the non-square detector, the
 anchor-head decode and the converter's round trip are in
 ``test_torch_sst_partition*.py`` and ``test_torch_sst_heads.py`` (files of
@@ -87,14 +87,21 @@ def _torch_config(jcfg):
         max_gt=jcfg.max_gt)
 
 
+def _param_tree(jcfg):
+    """The flax tree of ``jcfg``'s detector as ``convert`` writes it for
+    the port's (its shapes without tracing the JAX ``init``, which costs
+    seconds)."""
+    return convert.state_dict_to_flax(tdet.SSTDetector(
+        _torch_config(jcfg), device="cpu").state_dict())
+
+
 def _detector_pair(jcfg, num_real, seed):
     """numpy params, the jitted JAX forward, and the port's model loaded
     with the converted params."""
     points, mask = _frame(jcfg, num_real, seed=seed)
     model = jdet.SSTDetector(jcfg)
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), points, mask)
     params = jax.tree_util.tree_map(np.asarray,
-                                    _random_params(shapes["params"], seed))
+                                    _random_params(_param_tree(jcfg), seed))
     apply = jax.jit(lambda p, a, b: model.apply({"params": p}, a, b))
     out = apply(params, points, mask)
     ref = {k: np.asarray(out[k]) for k in ("cls", "reg", "dir")}

@@ -18,7 +18,8 @@ from objectcentricocccompletion_tpu.training import optim as joptim
 from objectcentricocccompletion_torch import convert
 from objectcentricocccompletion_torch.models import sst_detector as tdet
 from objectcentricocccompletion_torch.training import optim as toptim
-from tests.test_torch_sst import _frame, _random_params, _torch_config
+from tests.test_torch_sst import (_frame, _param_tree, _random_params,
+                                   _torch_config)
 from tests.test_torch_sst_train import TINY
 from tests.test_torch_window_attention import one_torch_thread  # noqa: F401
 
@@ -43,9 +44,8 @@ def tiny_grads():
     points, mask = _frame(TINY, 1800, seed=3)
     gb, gl, gv = _gt(TINY)
     model = jdet.SSTDetector(TINY)
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), points, mask)
     params = jax.tree_util.tree_map(np.asarray,
-                                    _random_params(shapes["params"], 6))
+                                    _random_params(_param_tree(TINY), 6))
 
     def loss_fn(p):
         out = model.apply({"params": p}, points, mask,

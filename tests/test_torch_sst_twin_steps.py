@@ -19,7 +19,7 @@ from objectcentricocccompletion_torch.data import frame_dataset as tfd
 from objectcentricocccompletion_torch.models import sst_detector as tdet
 from objectcentricocccompletion_torch.training import detector_trainer as tdt
 from objectcentricocccompletion_torch.training.optim import make_optimizer
-from tests.test_torch_sst import _random_params, _torch_config
+from tests.test_torch_sst import _param_tree, _random_params, _torch_config
 from tests.test_torch_sst_twin import TINY, frames  # noqa: F401
 from tests.test_torch_window_attention import one_torch_thread  # noqa: F401
 
@@ -36,10 +36,8 @@ def test_twin_training(frames):
 
     model = jdet.SSTDetector(TINY)
     first = next(jloader)
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0),
-                            first.points[0], first.points_mask[0])
     params = jax.tree_util.tree_map(np.asarray,
-                                    _random_params(shapes["params"], 2))
+                                    _random_params(_param_tree(TINY), 2))
     tx, _ = jax_make_optimizer(1e-4, TWIN_STEPS)
     mesh = make_mesh(jax.devices()[:1])
     # the state placed as the step returns it (replicated on the mesh), so

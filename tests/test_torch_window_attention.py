@@ -6,8 +6,9 @@ mode). ``chip_smoke.py`` holds the CUDA kernels against the same plain
 versions on the card. The costly comparisons with JAX are in
 ``test_torch_attention_fwd_interpret.py``, ``_bwd_vjp.py``,
 ``_bwd_chunked.py`` and ``_bwd_interpret.py``."""
+import functools
+
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -126,10 +127,16 @@ def _bwd_inputs(W, T, C, seed, fully_masked=(0,)):
     return q, k, v, mask, g
 
 
+@functools.partial(jax.jit, static_argnums=5)
+def _jit_einsum_vjp(q, k, v, mask, g, H):
+    return jax.vjp(lambda a, b, c: jnp_window_attention(a, b, c, mask, H),
+                   q, k, v)[1](g)
+
+
 def _einsum_vjp(q, k, v, mask, g, H):
-    _, vjp = jax.vjp(lambda a, b, c: jnp_window_attention(
-        a, b, c, jnp.asarray(mask), H), *map(jnp.asarray, (q, k, v)))
-    return [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    """dq, dk, dv of the einsum attention, one jitted JAX program (eager
+    JAX compiles a program per op and shape)."""
+    return [np.asarray(x) for x in _jit_einsum_vjp(q, k, v, mask, g, H)]
 
 
 def _function_grads(q, k, v, mask, g, H):
@@ -150,8 +157,9 @@ def test_bwd_fully_masked_windows_follow_the_where_form():
     dq, dk, dv = (x.numpy() for x in wa.window_attention_bwd_plain(
         *map(torch.from_numpy, (q, k, v, mask, g)), H))
     ref = _einsum_vjp(q, k, v, mask, g, H)
-    chunked = [np.asarray(x) for x in xla_chunked_window_attention_bwd(
-        *map(jnp.asarray, (q, k, v, mask, g)), H)]
+    chunked = [np.asarray(x) for x in jax.jit(
+        xla_chunked_window_attention_bwd, static_argnums=5)(
+        q, k, v, mask, g, H)]
     for w in (0, 3):
         assert not dq[w].any() and not dk[w].any()
         assert not ref[0][w].any() and not ref[1][w].any()

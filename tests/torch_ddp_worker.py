@@ -1,12 +1,14 @@
 """One rank of the port's data-parallel runs on the CPU (gloo), for
-``tests/test_torch_ddp.py`` and ``tests/test_torch_multiproc_eval.py``:
+``tests/test_torch_ddp.py``, ``tests/test_torch_ddp_opt_layouts.py`` and
+``tests/test_torch_multiproc_eval.py``:
 
-    python tests/torch_ddp_worker.py CASE RANK WORLD PORT OUT
+    python tests/torch_ddp_worker.py CASE[,CASE...] RANK WORLD PORT OUT
 
-joins ``WORLD`` processes at ``127.0.0.1:PORT``, runs ``CASE`` on its slice
-of the case's global batch and writes ``OUT/rank{RANK}.pt``. The cases'
-inputs are built here from seeds, so that a test builds the same ones for
-its one-process reference. Imports no JAX.
+joins ``WORLD`` processes at ``127.0.0.1:PORT``, runs each ``CASE`` in turn
+on its slice of the case's global batch, in one process group, and writes
+``OUT/{CASE}.rank{RANK}.pt``. The cases' inputs are built here from seeds,
+so that a test builds the same ones for its one-process reference. Imports
+no JAX.
 """
 import dataclasses
 import os
@@ -52,12 +54,18 @@ def ococc_case(dropout: bool = True):
     return cfg, batch._replace(gt_valid=valid)
 
 
-def ococc_step(cfg, batch: TrackletBatch) -> dict:
+def ococc_step(cfg, batch: TrackletBatch, opt: str = "tree") -> dict:
     """One training step of the tiny model (seed 0) on ``batch``, on the
-    CPU: its metrics, the parameters after it and the clipped
-    gradients."""
-    model, optimizer, schedule = create_train_state(cfg, 10, "cpu", seed=0)
-    metrics = make_train_step(model, optimizer, schedule, seed=1)(0, batch)
+    CPU, with the optimizer layout ``opt`` (``tree``, ``flat`` or
+    ``stacked``: ``create_train_state(flat_opt= | stacked_opt=)``): its
+    metrics, the parameters after it and the clipped gradients."""
+    state = create_train_state(cfg, 10, "cpu", seed=0,
+                               flat_opt=opt == "flat",
+                               stacked_opt=opt == "stacked")
+    model, optimizer, schedule = state[:3]
+    metrics = make_train_step(
+        model, optimizer, schedule, seed=1, flat_opt=opt == "flat",
+        stacked_spec=state[3] if opt == "stacked" else None)(0, batch)
     return dict(metrics={k: float(v) for k, v in metrics.items()},
                 params={n: p.detach().clone()
                         for n, p in model.named_parameters()},
@@ -113,23 +121,30 @@ def _slice(batch, rank: int, world: int):
     return type(batch)(*(x[rank * per:(rank + 1) * per] for x in batch))
 
 
-def main(case, rank, world, port, out):
+def run_case(case, rank, world, out):
+    if case in ("ococc", "ococc_nodrop"):
+        cfg, batch = ococc_case(dropout=case == "ococc")
+        return ococc_step(cfg, _slice(batch, rank, world))
+    if case in ("ococc_flat", "ococc_stacked"):
+        cfg, batch = ococc_case()
+        return ococc_step(cfg, _slice(batch, rank, world),
+                          opt=case.split("_")[1])
+    if case == "sst":
+        return sst_step(_slice(sst_case(), rank, world))
+    if case == "eval":
+        return eval_run(os.path.join(out, "data"), os.path.join(out, "eval"))
+    raise ValueError(case)
+
+
+def main(cases, rank, world, port, out):
     torch.set_num_threads(1)
     multihost.initialize(f"127.0.0.1:{port}", world, rank, "gloo", "cpu")
     try:
-        if case in ("ococc", "ococc_nodrop"):
-            cfg, batch = ococc_case(dropout=case == "ococc")
-            res = ococc_step(cfg, _slice(batch, rank, world))
-        elif case == "sst":
-            res = sst_step(_slice(sst_case(), rank, world))
-        elif case == "eval":
-            res = eval_run(os.path.join(out, "data"),
-                           os.path.join(out, "eval"))
-        else:
-            raise ValueError(case)
+        for case in cases.split(","):
+            torch.save(run_case(case, rank, world, out),
+                       os.path.join(out, f"{case}.rank{rank}.pt"))
     finally:
         multihost.shutdown()
-    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
 
 
 if __name__ == "__main__":
