@@ -57,6 +57,7 @@ from ..ops import roi_pool as rp
 from ..parallel import sp
 from ..parallel.multihost import data_size, global_sum
 from ..utils.device import resolve_device
+from ..utils.profiling import count, span
 from .layers import (DropoutKeys, Mlp, he_normal_, init_flax_like_,
                      sinusoidal_position_encoding)
 from .occ_decoder import OccDecoder
@@ -182,21 +183,44 @@ class OcOccNet(nn.Module):
         """The network's outputs; ``train``: the full causal window and,
         with ``keys``, dropout."""
         keys = self._keys(train, keys)
-        cfg = self.cfg
-        B, L, P, _ = batch.points.shape
-        G = B * L
-        pts_xyz = batch.points[..., :3]
-        pts_feats = batch.points[..., 3:]
-        if cfg.use_segmentor:
-            pts_feats = torch.cat([pts_feats, self.segment(batch)], -1)
-        layout = self.point_layout(batch)
-        pool, order = layout.pool, layout.order
-        if layout.packed is not None:
-            roi_feats, ae_feats, nonempty = self._encode_packed(
-                batch, pool, layout.packed, pts_xyz, pts_feats, keys)
+        with span("ococcnet.layout"):
+            layout = self.point_layout(batch)
+        with span("ococcnet.encode"):
+            roi_feats, ae_feats, nonempty = self._encode(batch, layout, keys)
+        with span("ococcnet.temporal"):
             return self._heads(batch, roi_feats, ae_feats, nonempty, train,
                                keys)
 
+    def _encode(self, batch: TrackletBatch, layout: PointLayout,
+                keys: DropoutKeys | None):
+        """The segmentor where the config has one, and both SIR encoders on
+        the layout: ``(roi_feats, ae_feats or None, nonempty)``. Counts the
+        layout's kept points and the frames that hold any."""
+        pts_xyz = batch.points[..., :3]
+        pts_feats = batch.points[..., 3:]
+        if self.cfg.use_segmentor:
+            pts_feats = torch.cat([pts_feats, self.segment(batch)], -1)
+        if layout.packed is not None:
+            valid = layout.packed.valid
+            count("ococcnet.points_kept", valid)
+            count("ococcnet.point_slots", valid.numel())
+            out = self._encode_packed(batch, layout.pool, layout.packed,
+                                      pts_xyz, pts_feats, keys)
+        else:
+            out = self._encode_dense(batch, layout, pts_xyz, pts_feats, keys)
+        count("ococcnet.frames_nonempty", out[2])
+        count("ococcnet.frame_slots", out[2].numel())
+        return out
+
+    def _encode_dense(self, batch: TrackletBatch, layout: PointLayout,
+                      pts_xyz: torch.Tensor, pts_feats: torch.Tensor,
+                      keys: DropoutKeys | None):
+        """Both encoders on the dense layout, compacted where its order
+        says."""
+        cfg = self.cfg
+        B, L, P, _ = batch.points.shape
+        G = B * L
+        pool, order = layout.pool, layout.order
         if order is not None:
             def take(x):
                 if x.dim() == 3:
@@ -207,6 +231,8 @@ class OcOccNet(nn.Module):
             pts_xyz, pts_feats = take(pts_xyz), take(pts_feats)
             pool = rp.RoiPoolInfo(*(take(x) for x in pool))
             P = order.shape[-1]
+        count("ococcnet.points_kept", pool.mask)
+        count("ococcnet.point_slots", pool.mask.numel())
 
         nonempty = pool.mask.any(-1)                        # [B, L]
 
@@ -224,7 +250,7 @@ class OcOccNet(nn.Module):
         roi_feats = torch.where(nonempty[..., None],
                                 roi_feats.reshape(B, L, -1), 0.0)
         if not self.with_occ:
-            return self._heads(batch, roi_feats, None, nonempty, train, keys)
+            return roi_feats, None, nonempty
 
         vox = rp.quantize_to_voxel_centers(pool.local_xyz,
                                            batch.rois[..., 3:6],
@@ -236,7 +262,7 @@ class OcOccNet(nn.Module):
             flat(pool.mask))
         ae_feats = torch.where(nonempty[..., None],
                                ae_feats.reshape(B, L, -1), 0.0)
-        return self._heads(batch, roi_feats, ae_feats, nonempty, train, keys)
+        return roi_feats, ae_feats, nonempty
 
     def segment(self, batch: TrackletBatch) -> torch.Tensor:
         """The segmentor's features of every point, [B, L, P, C]: each
@@ -375,8 +401,9 @@ class OcOccNet(nn.Module):
                    ) -> torch.Tensor:
         """Occupancy logits for box-local ``queries`` [..., K, 3] given
         ``shape_latent`` [..., D]."""
-        return self.occ_decoder(shape_latent, queries,
-                                self._keys(train, keys))
+        with span("ococcnet.occ_decoder"):
+            return self.occ_decoder(shape_latent, queries,
+                                    self._keys(train, keys))
 
 
 def gt_occ_to_roi_frame(occ_points: torch.Tensor, gt_boxes: torch.Tensor,
@@ -506,10 +533,11 @@ class OcOccNetWithLoss(nn.Module):
 
     def predict(self, batch: TrackletBatch) -> dict:
         """Refined boxes, scores and the network's outputs."""
-        out = self.net(batch, train=False)
-        boxes = coder.decode_from_rois(batch.rois, out["bbox_pred"])
-        scores = torch.sigmoid(out["cls_logit"])
-        return dict(boxes=boxes, scores=scores, **out)
+        with span("ococcnet.predict"):
+            out = self.net(batch, train=False)
+            boxes = coder.decode_from_rois(batch.rois, out["bbox_pred"])
+            scores = torch.sigmoid(out["cls_logit"])
+            return dict(boxes=boxes, scores=scores, **out)
 
     def decode_occ_queries(self, latent: torch.Tensor, queries: torch.Tensor
                            ) -> torch.Tensor:

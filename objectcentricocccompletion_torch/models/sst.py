@@ -21,6 +21,7 @@ from torch import nn
 from ..ops import voxelize as vx
 from ..ops import window as win
 from ..ops.window_attention import window_attention, window_attention_plain
+from ..utils.profiling import count, span
 from .layers import _gelu_exact, dense, layer_norm
 from .vfe import DynamicVFE
 
@@ -192,28 +193,31 @@ class SST(nn.Module):
         """points [N, 3+F]; mask [N] -> BEV canvas [GX, GY, d_model]."""
         c = self.cfg
         gx, gy, _ = (int(g) for g in c.grid_shape)
-        vres = vx.voxelize(points, mask, c.voxel_size, c.pc_range,
-                           c.max_voxels)
-        vfeat, _ = self.vfe(points, vres, c.max_voxels)
-        x = dense(self.input_proj, vfeat, self.dtype)
-        x = torch.where(vres.voxel_valid[:, None], x, 0.0)
-        parts, pos = self.partitions(vres)
+        with span("sst.voxelize"):
+            vres = vx.voxelize(points, mask, c.voxel_size, c.pc_range,
+                               c.max_voxels)
+            vfeat, _ = self.vfe(points, vres, c.max_voxels)
+            x = dense(self.input_proj, vfeat, self.dtype)
+            x = torch.where(vres.voxel_valid[:, None], x, 0.0)
+        with span("sst.blocks"):
+            parts, pos = self.partitions(vres)
+            for i, layer in enumerate(self.layers):
+                s = i % 2
+                out_x = x
+                for li, (lp, mw, cap) in enumerate(parts[s]):
+                    tokens, tmask = win.flat_to_window(x, lp, mw, cap)
+                    count("sst.tokens", tmask)
+                    count("sst.token_slots", mw * cap)
+                    tokens = layer(tokens, pos[s][li], tmask)
+                    out = win.window_to_flat(tokens, lp)
+                    out_x = torch.where((lp.win_of_voxel >= 0)[:, None],
+                                        out, out_x)
+                # voxels dropped by every level keep their previous feature
+                x = out_x
 
-        for i, layer in enumerate(self.layers):
-            s = i % 2
-            out_x = x
-            for li, (lp, mw, cap) in enumerate(parts[s]):
-                tokens, tmask = win.flat_to_window(x, lp, mw, cap)
-                tokens = layer(tokens, pos[s][li], tmask)
-                out = win.window_to_flat(tokens, lp)
-                out_x = torch.where((lp.win_of_voxel >= 0)[:, None], out,
-                                    out_x)
-            # voxels dropped by every level keep their previous feature
-            x = out_x
-
-        # BEV canvas; invalid voxels go to a spare row past the end
-        cx = torch.where(vres.voxel_valid, vres.coords[:, 0], gx)
-        cy = torch.where(vres.voxel_valid, vres.coords[:, 1], 0)
-        canvas = x.new_zeros((gx + 1, gy, c.d_model))
-        canvas[cx, cy] = torch.where(vres.voxel_valid[:, None], x, 0.0)
-        return canvas[:gx]
+            # BEV canvas; invalid voxels go to a spare row past the end
+            cx = torch.where(vres.voxel_valid, vres.coords[:, 0], gx)
+            cy = torch.where(vres.voxel_valid, vres.coords[:, 1], 0)
+            canvas = x.new_zeros((gx + 1, gy, c.d_model))
+            canvas[cx, cy] = torch.where(vres.voxel_valid[:, None], x, 0.0)
+            return canvas[:gx]

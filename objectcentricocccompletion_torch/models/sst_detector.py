@@ -10,6 +10,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from . import anchor_head as ah
 from .layers import conv, init_flax_like_
 from .sst import SST, SSTConfig, tiny_sst_config
@@ -69,18 +70,23 @@ class SSTDetector(nn.Module):
     def neck(self, bev: torch.Tensor) -> torch.Tensor:
         """bev [GX, GY, C] -> [1, neck_channels, GX, GY] in the computation
         dtype; GroupNorm statistics in float32 over the single sample."""
-        x = bev.to(self.dtype).permute(2, 0, 1)[None]
-        for cv, gn in zip(self.neck_convs, self.neck_norms):
-            x = conv(cv, x, self.dtype)
-            x = F.group_norm(x.float(), gn.num_groups, gn.weight, gn.bias,
-                             gn.eps).to(self.dtype)
-            x = torch.relu(x)
-        return x
+        with span("sst.neck"):
+            x = bev.to(self.dtype).permute(2, 0, 1)[None]
+            for cv, gn in zip(self.neck_convs, self.neck_norms):
+                x = conv(cv, x, self.dtype)
+                x = F.group_norm(x.float(), gn.num_groups, gn.weight,
+                                 gn.bias, gn.eps).to(self.dtype)
+                x = torch.relu(x)
+            return x
 
     def forward(self, points: torch.Tensor, mask: torch.Tensor) -> dict:
         """points [N, 3+F] float32, mask [N] bool -> dict of float32 cls
         [A, ncls], reg [A, 7], dir [A, 2] and ``bev_hw``."""
         feat = self.neck(self.backbone(points, mask))
+        with span("sst.head"):
+            return self._head(feat)
+
+    def _head(self, feat: torch.Tensor) -> dict:
         cls, reg, dirc = self.head(feat)
         return dict(cls=cls.float(), reg=reg.float(), dir=dirc.float(),
                     bev_hw=tuple(feat.shape[2:]))
@@ -101,7 +107,10 @@ class SSTDetector(nn.Module):
     def predict(self, points: torch.Tensor, mask: torch.Tensor,
                 max_out: int = 500):
         """-> (boxes [K, 7], scores [K], labels [K], valid [K])."""
-        out = self(points, mask)
-        return ah.anchor_head_decode(out["cls"], out["reg"], out["dir"],
-                                     self.anchors, self.cfg.anchors,
-                                     max_out)
+        with span("sst.predict"):
+            feat = self.neck(self.backbone(points, mask))
+            with span("sst.head"):
+                out = self._head(feat)
+                return ah.anchor_head_decode(out["cls"], out["reg"],
+                                             out["dir"], self.anchors,
+                                             self.cfg.anchors, max_out)

@@ -25,19 +25,18 @@ all masked.
 """
 from __future__ import annotations
 
-import collections
-
 import torch
 
+from ..utils import profiling
 from . import _build
 
 NEG = -1e9
 
 # Launches of the CUDA kernels, by window capacity T: the forward's and the
-# backward's (either dtype's kernel). Each wrapper adds one where it launches
-# its kernel and nowhere else.
-LAUNCHES: collections.Counter = collections.Counter()
-BWD_LAUNCHES: collections.Counter = collections.Counter()
+# backward's (either dtype's kernel), tallies of ``utils/profiling.py``. Each
+# wrapper adds one where it launches its kernel and nowhere else.
+LAUNCHES = profiling.TALLIES["window_attention.launches"]
+BWD_LAUNCHES = profiling.TALLIES["window_attention.bwd_launches"]
 
 _HEAD_DIMS = (8, 16, 32)
 # window capacities the kernels take, both dtypes. A block stages q, k and v
@@ -189,7 +188,7 @@ def _fwd_kernel(q, k, v, mask, num_heads):
                  out.data_ptr(), W, T, C, num_heads, _stream(q.device))
     if err != 0:
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
-    LAUNCHES[T] += 1
+    profiling.tally("window_attention.launches", T)
     return out
 
 
@@ -207,7 +206,7 @@ def _bwd_kernel(q, k, v, mask, g, num_heads):
                  W, T, C, num_heads, _stream(q.device))
     if err != 0:
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {err}")
-    BWD_LAUNCHES[T] += 1
+    profiling.tally("window_attention.bwd_launches", T)
     return dq, dk, dv
 
 

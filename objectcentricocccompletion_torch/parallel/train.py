@@ -77,6 +77,7 @@ from ..models.ococcnet import OcOccNetWithLoss, sequence_sharded
 from ..training.optim import (BufferAdamW, clip_grad_global_norm_, decays,
                               global_norm, make_flat_optimizer,
                               make_optimizer, make_stacked_optimizer, set_lr)
+from ..utils.profiling import span
 from . import collectives as cc
 from . import sp
 from .multihost import (data_group, data_rank, data_size, global_sum,
@@ -602,7 +603,11 @@ def make_train_step(model: OcOccNetWithLoss,
     ``flat_opt`` / ``stacked_spec``: ``optimizer`` is the flat or stacked
     one of ``create_train_state``, whose buffers the gradients accumulate
     into; ``grad_norm`` is their global norm. Both refuse a TP or FSDP
-    layout (per-parameter moments), as the JAX package does."""
+    layout (per-parameter moments), as the JAX package does.
+
+    Under a profiler the step is the span ``train.step`` over
+    ``train.h2d``, ``train.forward``, ``train.backward`` and
+    ``train.optimizer`` (``utils/profiling.py``)."""
     cfg = model.cfg
     device = model.code_weights.device
     buffered = flat_opt or stacked_spec is not None
@@ -639,30 +644,40 @@ def make_train_step(model: OcOccNetWithLoss,
     base = torch.tensor([seed, 0], dtype=torch.int64, device=device)
 
     def step_fn(step: int, batch: TrackletBatch) -> dict:
-        batch = batch.to(device)
-        base[1].fill_(step)
-        if buffered:
-            optimizer.zero_grad()
-        else:
-            set_lr(optimizer, schedule(step))
-            model.zero_grad(set_to_none=True)
-        with layout.running(model):
-            total, aux = loss_fn(batch, train=True,
-                                 keys=DropoutKeys(base, rank=shard))
-            total.backward()
-            layout.reduce_grads(model)
-            aux = mean_over_ranks({k: v.detach() for k, v in aux.items()},
-                                  [k for k in aux if k.startswith("loss")])
+        with span("train.step"), contextlib.ExitStack() as opt_span:
+            with span("train.h2d"):
+                batch = batch.to(device)
             if buffered:
-                return {**aux, "grad_norm": optimizer.step(schedule(step))}
-            norm_all = (global_norm(
-                [p.grad for p in every if p.grad is not None],
-                [p.grad for p in every_sharded if p.grad is not None],
-                layout.group) if frozen else None)
-            norm = clip_grad_global_norm_(trained, cfg.grad_clip_norm,
-                                          trained_sharded, layout.group)
-        optimizer.step()
-        return {**aux, "grad_norm": norm if norm_all is None else norm_all}
+                optimizer.zero_grad()
+            else:
+                model.zero_grad(set_to_none=True)
+            with layout.running(model):
+                with span("train.forward"):
+                    base[1].fill_(step)
+                    total, aux = loss_fn(batch, train=True,
+                                         keys=DropoutKeys(base, rank=shard))
+                with span("train.backward"):
+                    total.backward()
+                # from the gradients' reduction through the update, which
+                # the tree optimizer takes outside the step's scope
+                opt_span.enter_context(span("train.optimizer"))
+                layout.reduce_grads(model)
+                aux = mean_over_ranks(
+                    {k: v.detach() for k, v in aux.items()},
+                    [k for k in aux if k.startswith("loss")])
+                if buffered:
+                    return {**aux,
+                            "grad_norm": optimizer.step(schedule(step))}
+                norm_all = (global_norm(
+                    [p.grad for p in every if p.grad is not None],
+                    [p.grad for p in every_sharded if p.grad is not None],
+                    layout.group) if frozen else None)
+                norm = clip_grad_global_norm_(trained, cfg.grad_clip_norm,
+                                              trained_sharded, layout.group)
+            set_lr(optimizer, schedule(step))
+            optimizer.step()
+            return {**aux, "grad_norm": norm if norm_all is None
+                    else norm_all}
 
     step_fn.layout = layout
     return step_fn

@@ -137,9 +137,11 @@ JAX CLI's ``--samples``, which counts samples, is not taken.
 
 ``--profile N`` also traces N more frames (steps; for ``ococcnet``
 batches, predict and decode) with ``torch.profiler``, prints the operators
-that take the most device time, and adds the device's busy time per frame
-(step, batch), the kernels and copies it ran per frame (step, batch) and
-the busy share (kernel time over wall time) to the line.
+that take the most device time and the program's spans and counters per
+frame (``utils/profiling.py``: instances, stream and self ms of each span),
+and adds the device's busy time per frame (step, batch: the union of its
+kernels' and copies' intervals), the kernels and copies it ran per frame
+(step, batch) and the busy share (busy time over wall time) to the line.
 """
 from __future__ import annotations
 
@@ -173,6 +175,7 @@ from ..training.seq_trainer import (SeqWindow, make_seq_train_step,
 from ..training.surgery import restore_params, tree_hash
 from ..tools_occ import scenes
 from ..tools_occ.annotate import OccAnnotator
+from ..utils import profiling
 from ..utils.device import card_info, resolve_device
 from .train import build_detector
 
@@ -304,8 +307,10 @@ def time_frames(predict, points, mask, frames: int, warmup: int = 2
 def profile_calls(fn, n: int, device: torch.device, unit: str = "frame",
                   row_limit: int = 25) -> dict:
     """Trace ``n`` calls of ``fn()`` on the card; print the operators by
-    device time and return the device busy time per call and busy share
-    (summed kernel and copy time over the traced wall time)."""
+    device time and the program's spans and counters, and return the device
+    busy time per call (the union of the kernels', copies' and sets'
+    intervals: overlapping ones count once) and the busy share (over the
+    traced wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     _sync(device)
@@ -316,21 +321,38 @@ def profile_calls(fn, n: int, device: torch.device, unit: str = "frame",
             fn()
         _sync(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    avgs = prof.key_averages()
-    print(avgs.table(sort_by="self_device_time_total", row_limit=row_limit,
-                     max_name_column_width=60))
-    # kernels and copies only: an operator's row repeats its kernels' time
-    kernels = [e for e in avgs if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(prof.key_averages().table(sort_by="self_device_time_total",
+                                    row_limit=row_limit,
+                                    max_name_column_width=60))
+    print_spans(profiling.snapshot(), n, unit)
+    # kernels, copies and sets only: the spans' copies on the device
+    # timeline are no work
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_ms = profiling.union_length(
+        [(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
     # the hand-written attention kernels (csrc/window_attention*.cu)
-    attn_ms = sum(e.self_device_time_total for e in kernels
-                  if "window_attention" in e.key) / 1e3
+    attn_ms = sum(e.time_range.elapsed_us() for e in kernels
+                  if "window_attention" in e.name) / 1e3
     return {f"device_busy_ms_per_{unit}": busy_ms / n,
             # kernels and copies the card ran per call
-            f"device_calls_per_{unit}": sum(e.count for e in kernels) / n,
+            f"device_calls_per_{unit}": len(kernels) / n,
             "device_busy_share": busy_ms / wall_ms,
             f"attention_kernel_ms_per_{unit}": attn_ms / n,
             f"profiled_wall_ms_per_{unit}": wall_ms / n}
+
+
+def print_spans(snap: dict, n: int, unit: str) -> None:
+    """``profiling.snapshot()``'s spans (instances, stream, self and host
+    ms) and counters, each per call of ``n``."""
+    print(f"{'span':<24}{'per ' + unit:>10}{'stream ms':>12}"
+          f"{'self ms':>12}{'host ms':>12}")
+    for name, a in snap["spans"].items():
+        print(f"{name:<24}{a['instances'] / n:>10.2f}"
+              f"{a['stream_ms'] / n:>12.3f}{a['self_ms'] / n:>12.3f}"
+              f"{a['host_ms'] / n:>12.3f}")
+    for name, total in snap["counters"].items():
+        print(f"{name:<36} {total / n:.1f} per {unit}")
 
 
 def bench_sst(frames: int, dtype: str = "bfloat16", device="cuda",
