@@ -933,9 +933,9 @@ def occupancy(model, points, mask):
     """Occupied windows per (shift, level) and voxels in the frame."""
     c = model.cfg.sst
     vres = vx.voxelize(points, mask, c.voxel_size, c.pc_range, c.max_voxels)
-    parts, _ = model.backbone.partitions(vres)
-    occ = {f"shift{s}_T{cap}": int(lp.num_windows)
-           for s, levels in enumerate(parts) for lp, _, cap in levels}
+    shifts = model.backbone.partitions(vres)
+    occ = {f"shift{s}_T{lv.mask.shape[1]}": int(lv.part.num_windows)
+           for s, shift in enumerate(shifts) for lv in shift.levels}
     occ["voxels"] = int(vres.num_voxels)
     return occ
 

@@ -2,17 +2,21 @@
 pillars, ending in a BEV canvas.
 
 Counterpart of the JAX package's ``models/sst.py``. Both window partitions
-(regular and shifted) are computed once; each attention layer is a dense
-masked multi-head attention over ``[n_windows, capacity, C]`` tokens, run
-at two capacities (two-level drop-level batching: sparse windows attend at
-``small_capacity``). The attention core is the hand-written kernel of
-``ops/window_attention.py`` when ``use_pallas_attention`` is set (the
-field keeps the JAX config's name), else its plain version.
+(regular and shifted) are computed once, with each level's token layout.
+Each layer runs its per-token operations (projections, FFN, LayerNorms) on
+the flat voxel rows ``[max_voxels, C]``; only the attention core runs on
+windows, a dense masked multi-head attention over ``[n_windows, capacity,
+C]`` tokens at two capacities (two-level drop-level batching: sparse
+windows attend at ``small_capacity``). The JAX layer runs all of it on the
+windows; per voxel the math is the same. The attention core is the
+hand-written kernel of ``ops/window_attention.py`` when
+``use_pallas_attention`` is set (the field keeps the JAX config's name),
+else its plain version.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -109,9 +113,16 @@ def window_pos_embed(coors_in_win: torch.Tensor, window_shape, d_model: int,
     return torch.cat([embed(x), embed(y)], -1)
 
 
+class Shift(NamedTuple):
+    """One window shift, laid out once for the layers that use it."""
+    pos: torch.Tensor                      # [V, C] position embedding
+    levels: tuple[win.WindowLevel, ...]    # each voxel in one at most
+    kept: torch.Tensor                     # [V] bool: some level holds it
+
+
 class WindowMSALayer(nn.Module):
-    """Post-norm encoder layer over windowed tokens: q = k = x + pos,
-    masked multi-head attention, exact-GELU FFN, LayerNorms (eps 1e-5)."""
+    """Post-norm encoder layer: q = k = x + pos, masked multi-head
+    attention within windows, exact-GELU FFN, LayerNorms (eps 1e-5)."""
 
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int,
                  use_kernel: bool = True, dtype: torch.dtype | None = None):
@@ -128,23 +139,28 @@ class WindowMSALayer(nn.Module):
         self.ffn2 = nn.Linear(ffn_dim, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, tokens: torch.Tensor, pos: torch.Tensor,
-                mask: torch.Tensor) -> torch.Tensor:
-        """tokens/pos [W, T, C]; mask [W, T] True = valid. Returns float32
-        (the LayerNorm output), as the JAX layer does."""
-        dt = self.dtype or tokens.dtype
-        tokens = tokens.to(dt)
-        qk = tokens + pos.to(dt)
+    def forward(self, x: torch.Tensor, shift: Shift) -> torch.Tensor:
+        """x [V, C] voxel rows. Every per-token operation runs on the rows;
+        each level scatters q, k and v to its windows for the attention and
+        gathers the result back. Rows that no level holds keep ``x``; the
+        others are float32 (the LayerNorm output), as in the JAX layer."""
+        dt = self.dtype or x.dtype
+        tokens = x.to(dt)
+        qk = tokens + shift.pos.to(dt)
         q = dense(self.q, qk, dt)
         k = dense(self.k, qk, dt)
         v = dense(self.v, tokens, dt)
         attend = window_attention if self.use_kernel else \
             window_attention_plain
-        a = attend(q, k, v, mask, self.num_heads)
-        x = layer_norm(self.norm1, tokens + dense(self.out, a, dt))
-        f = dense(self.ffn2, _gelu_exact(dense(self.ffn1, x, dt)), dt)
-        x = layer_norm(self.norm2, x + f)
-        return torch.where(mask[..., None], x, 0.0)
+        a = 0.0
+        for lv in shift.levels:
+            wq, wk, wv = win.to_windows(lv, (q, k, v))
+            a = win.from_windows(attend(wq, wk, wv, lv.mask, self.num_heads),
+                                 lv, a)
+        y = layer_norm(self.norm1, tokens + dense(self.out, a, dt))
+        f = dense(self.ffn2, _gelu_exact(dense(self.ffn1, y, dt)), dt)
+        y = layer_norm(self.norm2, y + f)
+        return torch.where(shift.kept[:, None], y, x)
 
 
 class SST(nn.Module):
@@ -162,14 +178,14 @@ class SST(nn.Module):
             for _ in range(cfg.num_blocks) for _ in (0, 1))
         self.dtype = dt
 
-    def partitions(self, vres: vx.VoxelizeResult):
-        """Per shift (regular, shifted): the levels as
-        ``(partition, window budget, capacity)`` and the windowed position
-        embedding of each level."""
+    def partitions(self, vres: vx.VoxelizeResult) -> list[Shift]:
+        """Per shift (regular, shifted): the flat position embedding and
+        each level's token layout (window budget, capacity), shared by the
+        shift's layers."""
         c = self.cfg
         gs = c.grid_shape
         two_level = 0 < c.small_capacity < c.capacity
-        parts, pos = [], []
+        shifts = []
         for s in (False, True):
             p = win.partition(vres.coords, vres.voxel_valid, gs,
                               c.window_shape, s, c.max_windows, c.capacity)
@@ -179,14 +195,17 @@ class SST(nn.Module):
                 ps, pl = win.split_by_occupancy(
                     p, c.max_windows, c.small_capacity,
                     c.small_windows_budget, c.large_windows_budget)
-                levels = ((ps, c.small_windows_budget, c.small_capacity),
-                          (pl, c.large_windows_budget, c.capacity))
+                levels = (win.window_level(ps, c.small_windows_budget,
+                                           c.small_capacity),
+                          win.window_level(pl, c.large_windows_budget,
+                                           c.capacity))
             else:
-                levels = ((p, c.max_windows, c.capacity),)
-            parts.append(levels)
-            pos.append([win.flat_to_window(pe, lp, mw, cap)[0]
-                        for lp, mw, cap in levels])
-        return parts, pos
+                levels = (win.window_level(p, c.max_windows, c.capacity),)
+            kept = levels[0].kept
+            for lv in levels[1:]:
+                kept = kept | lv.kept
+            shifts.append(Shift(pe, levels, kept))
+        return shifts
 
     def forward(self, points: torch.Tensor, mask: torch.Tensor
                 ) -> torch.Tensor:
@@ -200,20 +219,15 @@ class SST(nn.Module):
             x = dense(self.input_proj, vfeat, self.dtype)
             x = torch.where(vres.voxel_valid[:, None], x, 0.0)
         with span("sst.blocks"):
-            parts, pos = self.partitions(vres)
+            shifts = self.partitions(vres)
             for i, layer in enumerate(self.layers):
-                s = i % 2
-                out_x = x
-                for li, (lp, mw, cap) in enumerate(parts[s]):
-                    tokens, tmask = win.flat_to_window(x, lp, mw, cap)
-                    count("sst.tokens", tmask)
-                    count("sst.token_slots", mw * cap)
-                    tokens = layer(tokens, pos[s][li], tmask)
-                    out = win.window_to_flat(tokens, lp)
-                    out_x = torch.where((lp.win_of_voxel >= 0)[:, None],
-                                        out, out_x)
-                # voxels dropped by every level keep their previous feature
-                x = out_x
+                shift = shifts[i % 2]
+                count("sst.rows", vres.voxel_valid)
+                count("sst.row_slots", c.max_voxels)
+                for lv in shift.levels:
+                    count("sst.tokens", lv.mask)
+                    count("sst.token_slots", lv.mask.numel())
+                x = layer(x, shift)
 
             # BEV canvas; invalid voxels go to a spare row past the end
             cx = torch.where(vres.voxel_valid, vres.coords[:, 0], gx)

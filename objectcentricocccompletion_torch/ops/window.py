@@ -7,11 +7,16 @@ the window`` (a running max, ``torch.cummax``); windows compact to a fixed
 ``[max_windows, capacity]`` layout with a validity mask. Tokens beyond the
 capacity and windows beyond the budget are dropped (slot -1). Window slots
 and ranks equal the JAX package's exactly.
+
+SST's blocks run on flat voxel rows and use the windowed layout only for
+the attention core: :func:`window_level` lays out a level once per shift,
+:func:`to_windows` scatters rows into its buffers and :func:`from_windows`
+gathers them back.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -137,3 +142,53 @@ def window_to_flat(wfeats: torch.Tensor, part: WindowPartition
     w = part.win_of_voxel.clamp(0, wfeats.shape[0] - 1)
     r = part.rank_in_win.clamp(0, wfeats.shape[1] - 1)
     return torch.where(ok[:, None], wfeats[w, r], 0.0)
+
+
+class WindowLevel(NamedTuple):
+    """One level of a shift's partition, laid out once for every layer of
+    the shift: where each voxel's token sits in the level's
+    ``[max_windows, capacity]`` buffer, and the buffer's token mask."""
+    part: WindowPartition
+    slot: torch.Tensor     # [V] w * capacity + rank; outside the level, a
+    #                        slot of the spare window past the buffer's end
+    source: torch.Tensor   # [V] the slot each voxel reads back: its own,
+    #                        else one picked by its index
+    kept: torch.Tensor     # [V] bool: the level holds the voxel's token
+    mask: torch.Tensor     # [max_windows, capacity] bool token mask
+
+
+def window_level(part: WindowPartition, max_windows: int,
+                 capacity: int) -> WindowLevel:
+    w, r = part.win_of_voxel, part.rank_in_win
+    kept = (w >= 0) & (r >= 0) & (w < max_windows) & (r < capacity)
+    n = max_windows * capacity
+    # voxels outside the level spread over the spare window's slots as they
+    # write, and over the buffer as they read, so that neither the scatter
+    # nor the backward's adds pile onto one row
+    idx = torch.arange(len(w), device=w.device)
+    slot = torch.where(kept, w * capacity + r, n + idx % capacity)
+    source = torch.where(kept, slot, idx % n)
+    m = torch.zeros(n + capacity, dtype=torch.bool, device=w.device)
+    m[slot] = kept
+    return WindowLevel(part, slot, source, kept,
+                       m[:n].view(max_windows, capacity))
+
+
+def to_windows(level: WindowLevel, feats: Sequence[torch.Tensor]
+               ) -> list[torch.Tensor]:
+    """Each [V, C] of ``feats`` -> the level's zeroed
+    [max_windows, capacity, C] buffer holding its tokens; one scatter for
+    all of them."""
+    W, T = level.mask.shape
+    rows = torch.stack(list(feats))
+    buf = rows.new_zeros((len(feats), (W + 1) * T, rows.shape[-1]))
+    buf[:, level.slot] = rows
+    return [b[:W * T].view(W, T, -1) for b in buf]
+
+
+def from_windows(wfeats: torch.Tensor, level: WindowLevel,
+                 other: torch.Tensor | float) -> torch.Tensor:
+    """[max_windows, capacity, C] -> [V, C]: each voxel's token of the
+    level; voxels outside the level take ``other``."""
+    rows = wfeats.reshape(-1, wfeats.shape[-1]).index_select(0, level.source)
+    return torch.where(level.kept[:, None], rows, other)

@@ -179,20 +179,24 @@ def _detect():
         with torch.no_grad():
             return model.predict(pts, msk, 50)
 
-    # the token masks of the blocks, laid out again
+    # the token masks of the blocks, laid out again, and the voxel rows
     vres = vx.voxelize(pts, msk, s.voxel_size, s.pc_range, s.max_voxels)
-    parts, _ = model.backbone.partitions(vres)
+    shifts = model.backbone.partitions(vres)
     x = torch.zeros(s.max_voxels, 1)
-    tokens = slots = 0
+    tokens = slots = rows = row_slots = 0
     for i in range(len(model.backbone.layers)):
-        for lp, mw, cap in parts[i % 2]:
-            tokens += int(win.flat_to_window(x, lp, mw, cap)[1].sum())
+        for lv in shifts[i % 2].levels:
+            mw, cap = lv.mask.shape
+            tokens += int(win.flat_to_window(x, lv.part, mw, cap)[1].sum())
             slots += mw * cap
-    assert 0 < tokens < slots
+        rows += int(vres.voxel_valid.sum())
+        row_slots += s.max_voxels
+    assert 0 < tokens < slots and 0 < rows <= row_slots
     roots = {"sst.predict": None, "sst.voxelize": "sst.predict",
              "sst.blocks": "sst.predict", "sst.neck": "sst.predict",
              "sst.head": "sst.predict"}
-    return call, roots, {"sst.tokens": tokens, "sst.token_slots": slots}
+    return call, roots, {"sst.tokens": tokens, "sst.token_slots": slots,
+                         "sst.rows": rows, "sst.row_slots": row_slots}
 
 
 @pytest.mark.parametrize("path", [_refine, _train, _detect],

@@ -36,9 +36,14 @@ from objectcentricocccompletion_torch.evalx.detector_eval import (
 from objectcentricocccompletion_torch.models import anchor_head as tah
 from objectcentricocccompletion_torch.models import sst as tsst
 from objectcentricocccompletion_torch.models import sst_detector as tdet
+from objectcentricocccompletion_torch.models.layers import (_gelu_exact,
+                                                            dense,
+                                                            layer_norm)
 from objectcentricocccompletion_torch.models.vfe import DynamicVFE as TVFE
 from objectcentricocccompletion_torch.ops import voxelize as tvx
 from objectcentricocccompletion_torch.ops import window as twin
+from objectcentricocccompletion_torch.ops.window_attention import (
+    window_attention, window_attention_plain)
 from objectcentricocccompletion_torch.utils.device import resolve_device
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
@@ -294,6 +299,32 @@ def test_window_pos_embed_matches(window_shape, d_model):
                                rtol=1e-6)
 
 
+def _rows_of_windows(tokens, pos, mask):
+    """The JAX layer's windowed input [W, T, C] as the port's flat rows:
+    row w * T + t is slot (w, t), in one level at the windows' own layout;
+    the masked slots are rows that no level holds."""
+    W, T, C = tokens.shape
+    i = torch.arange(W * T)
+    m = _t(mask).reshape(-1)
+    part = twin.WindowPartition(torch.where(m, i // T, -1),
+                                torch.where(m, i % T, -1),
+                                torch.zeros(W * T, 3, dtype=torch.long),
+                                torch.tensor(W))
+    level = twin.window_level(part, W, T)
+    assert torch.equal(level.mask, _t(mask))
+    shift = tsst.Shift(_t(pos).reshape(-1, C), (level,), level.kept)
+    return _t(tokens).reshape(-1, C), shift
+
+
+def _check_rows(got, ref, tokens, mask, **tol):
+    """The rows of slots the mask holds against the JAX layer's windows;
+    the others keep their input (the JAX layer writes 0 there)."""
+    got = got.reshape(tokens.shape).numpy()
+    np.testing.assert_allclose(got[mask], np.asarray(ref)[mask], **tol)
+    np.testing.assert_array_equal(got[~mask], tokens[~mask])
+    np.testing.assert_array_equal(np.asarray(ref)[~mask], 0.0)
+
+
 def test_window_msa_layer_matches(tiny):
     s = TINY.sst
     rng = np.random.RandomState(2)
@@ -311,11 +342,10 @@ def test_window_msa_layer_matches(tiny):
                                  use_kernel=use_kernel)
         tl.load_state_dict(convert.flax_to_state_dict(p))
         with torch.no_grad():
-            got = tl(_t(tokens), _t(pos), _t(mask))
+            got = tl(*_rows_of_windows(tokens, pos, mask))
         assert got.dtype == torch.float32
         # the fp32 forward bar of the repository: 2e-5
-        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5,
-                                   rtol=2e-5)
+        _check_rows(got, ref, tokens, mask, atol=2e-5, rtol=2e-5)
 
 
 def test_window_msa_layer_bf16_dtype_flow(tiny):
@@ -336,11 +366,111 @@ def test_window_msa_layer_bf16_dtype_flow(tiny):
                              dtype=torch.bfloat16)
     tl.load_state_dict(convert.flax_to_state_dict(p))
     with torch.no_grad():
-        got = tl(_t(tokens), _t(pos), _t(mask))
+        got = tl(*_rows_of_windows(tokens, pos, mask))
     assert ref.dtype == jnp.float32 and got.dtype == torch.float32
     # bf16 rounds at other places (the JAX einsum attention runs in bf16,
     # the port's in float32): 8 mantissa bits on O(1) normalised outputs
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=0.1)
+    _check_rows(got, ref, tokens, mask, atol=0.1)
+
+
+def _windowed_layer(layer, x, pe, levels):
+    """A layer as the windowed formulation runs it: each level's voxels
+    laid into windows by ``flat_to_window``, every per-token operation on
+    all ``[max_windows, capacity]`` slots, ``window_to_flat`` back; voxels
+    that no level holds keep their feature."""
+    dt = layer.dtype or x.dtype
+    attend = window_attention if layer.use_kernel else \
+        window_attention_plain
+    out_x = x
+    for part, mw, cap in levels:
+        tokens, mask = twin.flat_to_window(x, part, mw, cap)
+        pos = twin.flat_to_window(pe, part, mw, cap)[0]
+        tokens = tokens.to(dt)
+        qk = tokens + pos.to(dt)
+        q, k = dense(layer.q, qk, dt), dense(layer.k, qk, dt)
+        v = dense(layer.v, tokens, dt)
+        a = attend(q, k, v, mask, layer.num_heads)
+        y = layer_norm(layer.norm1, tokens + dense(layer.out, a, dt))
+        f = dense(layer.ffn2, _gelu_exact(dense(layer.ffn1, y, dt)), dt)
+        y = layer_norm(layer.norm2, y + f)
+        y = torch.where(mask[..., None], y, 0.0)
+        out_x = torch.where((part.win_of_voxel >= 0)[:, None],
+                            twin.window_to_flat(y, part), out_x)
+    return out_x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_flat_rows_match_the_windowed_blocks(use_kernel, dtype):
+    """The blocks on flat voxel rows against the windowed formulation they
+    replace, forward and gradients, through every layer of the tiny SST.
+    Budgets of 12 windows, capacity 10, a small level of 8 tokens in 6
+    windows and a large one of 4: windows beyond the budget, tokens beyond
+    the capacity, voxels that every level drops, and invalid voxel rows."""
+    cfg = dataclasses.replace(tsst.tiny_sst_config(), compute_dtype=dtype,
+                              use_pallas_attention=use_kernel)
+    torch.manual_seed(0)
+    sst = tsst.SST(cfg)
+    with torch.no_grad():
+        for name, p in sst.named_parameters():
+            if name.endswith("bias"):
+                p.normal_(0, 0.1)
+            elif "norm" in name:
+                p.add_(0.1 * torch.randn_like(p))
+    points, mask = _frame(TINY, 500, seed=3)
+    vres = tvx.voxelize(_t(points), _t(mask), cfg.voxel_size, cfg.pc_range,
+                        cfg.max_voxels)
+    valid = vres.voxel_valid
+    shifts, windowed = [], []
+    for shifted in (False, True):
+        p = twin.partition(vres.coords, valid, cfg.grid_shape,
+                           cfg.window_shape, shifted, 12, 10)
+        ps, pl = twin.split_by_occupancy(p, 12, 8, 6, 4)
+        levels = ((ps, 6, 8), (pl, 4, 10))
+        pe = tsst.window_pos_embed(p.coors_in_win, cfg.window_shape,
+                                   cfg.d_model, cfg.pos_temperature)
+        flat = tuple(twin.window_level(*lv) for lv in levels)
+        kept = flat[0].kept | flat[1].kept
+        shifts.append(tsst.Shift(pe, flat, kept))
+        windowed.append((pe, levels))
+        whole = twin.partition(vres.coords, valid, cfg.grid_shape,
+                               cfg.window_shape, shifted, 100, 16)
+        assert int(p.num_windows) > 12
+        assert int(twin.window_counts(whole, 100).max()) > 10
+        assert all(bool(lv.kept.any()) for lv in flat)
+        assert bool((valid & ~kept).any()) and not bool(kept[~valid].any())
+    assert bool((~valid).any())
+    x0 = torch.randn(cfg.max_voxels, cfg.d_model) * valid[:, None]
+    weight = torch.randn(cfg.max_voxels, cfg.d_model)
+
+    def run(flat):
+        x = x0.clone().requires_grad_(True)
+        h = x
+        for i, layer in enumerate(sst.layers):
+            h = layer(h, shifts[i % 2]) if flat else \
+                _windowed_layer(layer, h, *windowed[i % 2])
+        (h * weight).sum().backward()
+        grads = {n: p.grad.clone() for n, p in sst.layers.named_parameters()}
+        sst.zero_grad()
+        return h.detach(), x.grad, grads
+
+    (got, gx, gp), (ref, rx, rp) = run(True), run(False)
+    assert got.dtype == torch.float32
+    assert torch.equal(got[~valid], torch.zeros_like(got[~valid]))
+    # the fp32 forward bar of the repository: 2e-5
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=2e-5,
+                               rtol=2e-5)
+    # the repository's float32 gradient bar: 1e-4
+    np.testing.assert_allclose(gx.numpy(), rx.numpy(), atol=1e-4, rtol=0)
+    assert set(gp) == set(rp)
+    for name, g in gp.items():
+        # bf16 weight gradients are bf16 products summed over other rows
+        # (the windows' empty slots add zeros in another order): a few
+        # bf16 steps of the leaf's largest entry
+        atol = 1e-4 + (2 ** -6 * float(rp[name].abs().max())
+                       if dtype == "bfloat16" else 0.0)
+        np.testing.assert_allclose(g.numpy(), rp[name].numpy(), atol=atol,
+                                   rtol=0, err_msg=name)
 
 
 def test_coder_encode_decode_match():
