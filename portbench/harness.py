@@ -9,6 +9,30 @@ the numbers that decide ``correct`` are in ``limits/<cell>.json``, and each
 per-layer metric is read by ``metrics/<metric>.py`` (or
 ``metrics/<prefix>.py``, the part of its name before the first dot).
 Nothing here names a cell.
+
+A new configuration, mix or cell comes in new files alone, each found by
+the name ``BENCHMARK.json`` gives it:
+
+- ``configs/<config>.json``: the configuration as it is run, with its
+  ``name``, ``reference``, ``reduced`` and ``precision``;
+- ``traffic/<mix>.json``: the mix's parameters and its ``mode``;
+- ``modes/<mode>.py`` (a new mode only): ``Mode``, the timed path and its
+  check, and beside it ``FAULTS`` (the faults its timed path can have),
+  ``TINY_MIX`` (the overrides that cut its mix to the CPU tests' size),
+  ``CARD_SECONDS`` (the card test's short window) and, for a mode whose
+  strongest fault short of the control is run on the card, ``HALF_FAULT``;
+- ``reference/<config>.py``: the plain reference, one per configuration,
+  importing neither the port nor the rest of the benchmark;
+- ``counts_<config>.py`` beside ``counts.py``: the configuration's
+  operation counts, so that ``counts.py`` is never edited to add a model;
+- ``tests/tiny_<config>.py``: ``config()``, the configuration at the CPU
+  tests' size;
+- ``tests/test_portbench_config_<config>.py``: the file held to its
+  source;
+- ``limits/<cell>.json``: the limit of each number compared;
+- ``metrics/<metric>.py``: a new per-layer metric's reader (``SOURCE``
+  names the span or the ``(useful, slots)`` counters a reader of the
+  program's tracer takes).
 """
 from __future__ import annotations
 
@@ -62,9 +86,9 @@ def mode_module(mix: dict):
     return importlib.import_module(f"portbench.modes.{mix['mode']}")
 
 
-def reader(metric: str):
-    """The reader of a per-layer metric: ``metrics/<name>.py``, else
-    ``metrics/<prefix>.py``."""
+def reader_module(metric: str):
+    """The module that reads a per-layer metric: ``metrics/<name>.py``,
+    else ``metrics/<prefix>.py``."""
     for stem in (metric, metric.split(".")[0]):
         path = HERE / "metrics" / f"{stem}.py"
         if path.exists():
@@ -72,8 +96,13 @@ def reader(metric: str):
                 f"portbench.metrics.{stem.replace('.', '_')}", path)
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
-            return mod.read
+            return mod
     raise FileNotFoundError(f"no reader for {metric} under {HERE / 'metrics'}")
+
+
+def reader(metric: str):
+    """The reader of a per-layer metric: ``reader_module(metric).read``."""
+    return reader_module(metric).read
 
 
 def set_precision(config: dict) -> None:

@@ -4,6 +4,9 @@ the frames the program runs (``ococcnet.frames_nonempty`` /
 decoder run over every frame slot."""
 from portbench.spans import fill
 
+# the program counters this reads: (useful, slots)
+SOURCE = ("ococcnet.frames_nonempty", "ococcnet.frame_slots")
+
 
 def read(ctx):
     return fill("ococcnet.frames_nonempty", "ococcnet.frame_slots")

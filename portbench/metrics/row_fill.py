@@ -4,6 +4,9 @@ run them on, summed over the layers (``sst.rows`` / ``sst.row_slots``:
 ``max_voxels`` rows a layer), in %."""
 from portbench.spans import fill
 
+# the program counters this reads: (useful, slots)
+SOURCE = ("sst.rows", "sst.row_slots")
+
 
 def read(ctx):
     return fill("sst.rows", "sst.row_slots")

@@ -22,6 +22,12 @@ from .. import counts, traffic, weights
 from ..reference import sst as ref
 from . import port_config, worst
 
+# the faults this timed path can have (the tests' cases), the overrides
+# that cut its mix to the CPU tests' size, and the card test's short window
+FAULTS = ("answer",)
+TINY_MIX = dict(frames=3, check_frames=2, trace_calls=2)
+CARD_SECONDS = 2.0
+
 # a decoded yaw may differ by pi from the reference's where the direction
 # logits or the wrap of the decode are this close to a tie
 DIR_TIE = 1e-3

@@ -18,6 +18,14 @@ from .. import counts, traffic, weights
 from ..reference import ococcnet as ref
 from . import port_config, worst
 
+# the faults this timed path can have (the tests' cases), the overrides
+# that cut its mix to the CPU tests' size, and the card test's short window
+FAULTS = ("answer",)
+TINY_MIX = dict(tracklets=6, min_len=3, max_len=16, buckets=[8, 16],
+                frames_per_call=32, queries_per_frame=32, full_range_m=40.0,
+                check_calls=3, trace_calls=2)
+CARD_SECONDS = 4.0
+
 
 class Mode:
     def __init__(self, config: dict, mix: dict, seed: int, device,

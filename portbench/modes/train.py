@@ -40,6 +40,16 @@ from .. import counts, traffic, weights
 from ..reference import ococcnet as ref
 from . import port_config, worst
 
+# the faults this timed path can have (the tests' cases; ``HALF_FAULT`` the
+# one that reads highest short of the control, run on the card), the
+# overrides that cut its mix to the CPU tests' size, and the card test's
+# short window
+FAULTS = ("unchanged", "half_batch")
+HALF_FAULT = "half_batch"
+TINY_MIX = dict(batches=4, batch=2, length=8, full_range_m=40.0,
+                log_interval=2, trace_calls=2)
+CARD_SECONDS = 6.0
+
 
 class Mode:
     def __init__(self, config: dict, mix: dict, seed: int, device,

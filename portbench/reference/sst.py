@@ -328,3 +328,234 @@ def frame_work(cfg: dict, points, mask) -> dict:
                 voxels=len(vox["coords"]), masks=masks,
                 window_tokens=[tokens[i % 2]
                                for i in range(2 * s["num_blocks"])])
+
+
+# ------------------------------------------------------------- training
+#
+# The training loss of one labelled frame, its gradient and the optimizer
+# step, as the port states them (``models/anchor_head.py``,
+# ``training/detector_trainer.py``, ``training/optim.py``), written out
+# again: float32 with TF32 off, the gradient by autograd. Departures of
+# that head from the published one (mmdetection3d's ``Anchor3DHead`` with
+# ``MaxIoUAssigner`` in ``sst_waymoD5_1x_3class_8heads_v2.py``), kept here
+# because they are the program's stated behaviour:
+#
+# - a GT's forced match takes its single best anchor (the first on ties)
+#   whatever its IoU; the published assigner takes every anchor at the GT's
+#   best IoU, and only where that is at least ``min_pos_iou``;
+# - where several GTs force one anchor the last by index wins, padded GTs
+#   too (they all force anchor 0, so a valid GT forcing anchor 0 would lose
+#   it; anchor 0 lies at the grid's corner, outside every labelled scene);
+# - the box loss is plain L1 (weight 0.5) on the deltas with the heading
+#   as sin(p - t) split as sin p cos t vs cos p sin t, as the published
+#   config's ``L1Loss``; every loss is normalised by the positive count
+#   (at least 1), with no sampling, as published;
+# - one frame a step, the learning rate of mmcv's one-cycle schedule set
+#   before the step, the global-norm clip before AdamW.
+
+FOCAL_ALPHA, FOCAL_GAMMA = 0.25, 2.0
+LOSS_WEIGHTS = dict(cls=1.0, bbox=0.5, dir=0.2)
+
+
+def neck_and_head(p: dict, cfg: dict, canvas: torch.Tensor) -> tuple:
+    """The neck and the head over the BEV canvas, with the gradient:
+    per anchor the class logits ``[A, classes]``, the deltas ``[A, 7]``
+    and the direction logits ``[A, 2]``, and the BEV grid's shape."""
+    x = canvas.permute(2, 0, 1)[None]
+    for i, d in enumerate(NECK_DILATIONS):
+        x = F.conv2d(x, p[f"neck_convs.{i}.weight"], None, 1, d, d)
+        x = torch.relu(F.group_norm(x, 16, p[f"neck_norms.{i}.weight"],
+                                    p[f"neck_norms.{i}.bias"], 1e-3))
+
+    def head(name, k):
+        y = F.conv2d(x, p[f"head.{name}.weight"], p[f"head.{name}.bias"])
+        return y[0].permute(1, 2, 0).reshape(-1, k)
+
+    return (head("cls", cfg["num_classes"]), head("reg", 7), head("dir", 2),
+            tuple(x.shape[2:]))
+
+
+def bev_iou_nearest(anchors: torch.Tensor, gts: torch.Tensor
+                    ) -> torch.Tensor:
+    """``[A, G]`` BEV IoU of the boxes turned to their nearest axis: ``w``
+    (index 3) spans x and ``l`` spans y, swapped where |sin yaw| > |cos
+    yaw|."""
+    def extent(b):
+        swap = torch.sin(b[:, 6]).abs() > torch.cos(b[:, 6]).abs()
+        w = torch.where(swap, b[:, 4], b[:, 3])
+        l = torch.where(swap, b[:, 3], b[:, 4])
+        return (b[:, 0] - w / 2, b[:, 1] - l / 2,
+                b[:, 0] + w / 2, b[:, 1] + l / 2)
+
+    ax0, ay0, ax1, ay1 = extent(anchors)
+    gx0, gy0, gx1, gy1 = extent(gts)
+    ix = (torch.minimum(ax1[:, None], gx1[None])
+          - torch.maximum(ax0[:, None], gx0[None])).clamp(min=0)
+    iy = (torch.minimum(ay1[:, None], gy1[None])
+          - torch.maximum(ay0[:, None], gy0[None])).clamp(min=0)
+    inter = ix * iy
+    area_a = (ax1 - ax0) * (ay1 - ay0)
+    area_g = (gx1 - gx0) * (gy1 - gy0)
+    return inter / (area_a[:, None] + area_g[None] - inter).clamp(min=1e-6)
+
+
+def assign_anchors(anchors, gt_boxes, gt_labels, gt_valid, a: dict
+                   ) -> tuple:
+    """Each anchor's GT, and whether it is positive or negative. An anchor
+    is of the class of its size row and takes the GT of its class (of any
+    class where there is one size) with the best IoU (the first on ties):
+    positive at ``pos_iou_thr`` of its class or above, negative under
+    ``neg_iou_thr``. Then each GT forces its best anchor positive (the
+    first on ties; where several force one, the last GT by index, kept
+    only if valid). Invalid GTs match nothing."""
+    A, S, R = len(anchors), len(a["sizes"]), len(a["rotations"])
+    cls = (torch.arange(A, device=anchors.device) // R) % S
+    iou = bev_iou_nearest(anchors, gt_boxes)
+    ok = gt_valid[None]
+    if S > 1:
+        ok = ok & (cls[:, None] == gt_labels[None].long())
+    iou = torch.where(ok, iou, -1.0)
+
+    def per_class(v):
+        v = v if isinstance(v, (list, tuple)) else [v] * S
+        return torch.tensor(v, dtype=torch.float32,
+                            device=anchors.device)[cls]
+
+    best_iou, best_gt = iou.amax(1), iou.argmax(1)
+    pos = best_iou >= per_class(a["pos_iou_thr"])
+    neg = best_iou < per_class(a["neg_iou_thr"])
+    claim = torch.full((A,), -1, dtype=torch.long, device=anchors.device)
+    gts = torch.arange(len(gt_boxes), device=anchors.device)
+    claim.scatter_reduce_(0, iou.argmax(0), gts, "amax")
+    forced = (claim >= 0) & gt_valid[claim.clamp(min=0)]
+    best_gt = torch.where(forced & ~pos, claim.clamp(min=0), best_gt)
+    pos = pos | forced
+    return best_gt, pos, neg & ~pos
+
+
+def box_deltas(anchors: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """The deltas that take bottom-centre ``anchors`` to ``boxes``: the
+    centre over the anchor's BEV diagonal (z over its height, between
+    mid-heights), log size ratios, the yaw difference."""
+    xa, ya, za, wa, la, ha, ra = anchors.unbind(-1)
+    xg, yg, zg, wg, lg, hg, rg = boxes.unbind(-1)
+    diag = torch.sqrt(la ** 2 + wa ** 2)
+    return torch.stack([(xg - xa) / diag, (yg - ya) / diag,
+                        ((zg + hg / 2) - (za + ha / 2)) / ha,
+                        torch.log(wg / wa), torch.log(lg / la),
+                        torch.log(hg / ha), rg - ra], -1)
+
+
+def anchor_losses(cls, reg, dirl, anchors, gt_boxes, gt_labels, gt_valid,
+                  a: dict, num_classes: int) -> dict:
+    """Sigmoid focal loss over the positive and negative anchors (one-hot
+    targets on positives), L1 on the positives' deltas with the heading's
+    sine split, and the direction cross-entropy on positives (bin 1 where
+    the GT's yaw less ``dir_offset`` lies in [pi, 2 pi) modulo 2 pi), each
+    over the positive count (at least 1)."""
+    best_gt, pos, neg = assign_anchors(anchors, gt_boxes, gt_labels,
+                                       gt_valid, a)
+    gt = gt_boxes[best_gt]
+    lab = gt_labels[best_gt].long()
+    n_pos = pos.sum().float().clamp(min=1.0)
+    onehot = ((lab[:, None] == torch.arange(num_classes,
+                                            device=cls.device))
+              & pos[:, None]).float()
+    prob = torch.sigmoid(cls)
+    ce = F.binary_cross_entropy_with_logits(cls, onehot, reduction="none")
+    p_t = prob * onehot + (1 - prob) * (1 - onehot)
+    a_t = FOCAL_ALPHA * onehot + (1 - FOCAL_ALPHA) * (1 - onehot)
+    focal = a_t * (1 - p_t) ** FOCAL_GAMMA * ce
+    loss_cls = (focal * (pos | neg).float()[:, None]).sum() / n_pos
+
+    t = box_deltas(anchors, gt)
+    pred = torch.cat([reg[:, :6], (torch.sin(reg[:, 6])
+                                   * torch.cos(t[:, 6]))[:, None]], -1)
+    tgt = torch.cat([t[:, :6], (torch.cos(reg[:, 6])
+                                * torch.sin(t[:, 6]))[:, None]], -1)
+    loss_bbox = ((pred - tgt).abs() * pos.float()[:, None]).sum() / n_pos
+
+    rot = gt[:, 6] - a["dir_offset"]
+    turned = torch.fmod(rot, 2 * math.pi)
+    turned = torch.where(turned < 0, turned + 2 * math.pi, turned)
+    dir_tgt = (turned >= math.pi).long()
+    ce_dir = F.cross_entropy(dirl, dir_tgt, reduction="none")
+    loss_dir = (ce_dir * pos.float()).sum() / n_pos
+    w = LOSS_WEIGHTS
+    loss = w["cls"] * loss_cls + w["bbox"] * loss_bbox + w["dir"] * loss_dir
+    return dict(loss_cls=w["cls"] * loss_cls, loss_bbox=w["bbox"] * loss_bbox,
+                loss_dir=w["dir"] * loss_dir, loss=loss,
+                num_pos=pos.sum().float())
+
+
+def frame_losses(p: dict, cfg: dict, frame: dict) -> dict:
+    """One labelled frame's losses (``frame``: ``points``, ``mask``,
+    ``gt_boxes``, ``gt_labels``, ``gt_valid``)."""
+    s = cfg["sst"]
+    canvas, _, _ = backbone(p, s, frame["points"], frame["mask"])
+    cls, reg, dirl, hw = neck_and_head(p, cfg, canvas)
+    anchors = torch.from_numpy(generate_anchors(
+        hw, s["pc_range"], cfg["anchors"])).to(cls.device)
+    return anchor_losses(cls, reg, dirl, anchors, frame["gt_boxes"],
+                         frame["gt_labels"], frame["gt_valid"],
+                         cfg["anchors"], cfg["num_classes"])
+
+
+def step_grads(params: dict, cfg: dict, frame: dict) -> dict:
+    """One training forward and backward of ``frame`` from ``params``: the
+    loss terms, each leaf's gradient before the clip (zeros where the loss
+    does not reach it) and their global norm."""
+    p = {k: v.detach().clone().requires_grad_(True)
+         for k, v in params.items()}
+    terms = frame_losses(p, cfg, frame)
+    grads = torch.autograd.grad(terms["loss"], list(p.values()),
+                                allow_unused=True)
+    grads = {k: torch.zeros_like(v) if g is None else g
+             for (k, v), g in zip(p.items(), grads)}
+    norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+    return dict(losses={k: float(v.detach()) for k, v in terms.items()},
+                grads=grads, norm=float(norm))
+
+
+def learning_rate(opt: dict, total_steps: int, step: int) -> float:
+    """mmcv's one-cycle cosine schedule: from ``base_lr`` up to
+    ``peak_ratio`` times it over the first 10% of the steps, then down to
+    1e-3 of that peak."""
+    up = max(int(total_steps * 0.1), 1)
+    peak = opt["base_lr"] * opt["peak_ratio"]
+
+    def cos(t, lo, hi):
+        return hi + (lo - hi) * 0.5 * (1 + math.cos(math.pi * t))
+
+    if step < up:
+        return cos(min(max(step / up, 0.0), 1.0), opt["base_lr"], peak)
+    t = (step - up) / max(total_steps - up, 1)
+    return cos(min(max(t, 0.0), 1.0), peak, peak * 1e-3)
+
+
+def decays(name: str) -> bool:
+    """Weight decay on every weight but norms' and biases."""
+    parts = name.split(".")
+    return not (any("norm" in q.lower() or q == "ln" for q in parts)
+                or parts[-1] == "bias")
+
+
+def adamw(params: dict, moments: tuple, grads: dict, opt: dict,
+          total_steps: int, step: int) -> tuple:
+    """AdamW (0.9, 0.999, eps 1e-8, decoupled decay ``weight_decay`` on
+    ``decays``) at the schedule's rate for step ``step`` (its ``t`` is
+    ``step + 1``): the parameters and the first and second moments after
+    it."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    lr = learning_rate(opt, total_steps, step)
+    t = step + 1
+    out, m1, m2 = {}, {}, {}
+    with torch.no_grad():
+        for k, v in params.items():
+            g = grads[k]
+            v = v * (1 - lr * opt["weight_decay"]) if decays(k) else v.clone()
+            m1[k] = moments[0][k] * b1 + g * (1 - b1)
+            m2[k] = moments[1][k] * b2 + g * g * (1 - b2)
+            denom = m2[k].sqrt() / math.sqrt(1 - b2 ** t) + eps
+            out[k] = v - lr / (1 - b1 ** t) * m1[k] / denom
+    return out, (m1, m2)

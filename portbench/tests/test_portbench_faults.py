@@ -1,7 +1,7 @@
 """``correct`` comes out false on a broken timed path: the control (the
-port at bfloat16) and each fault the cell can have, at the tiny size on
-the CPU, everything else as a run drives it. One chip, so no exchange
-between chips to leave out."""
+port at bfloat16) and each fault the cell's mode declares (``FAULTS``), at
+the tiny size on the CPU, everything else as a run drives it. One chip, so
+no exchange between chips to leave out."""
 from __future__ import annotations
 
 import time
@@ -11,12 +11,17 @@ import pytest
 from portbench import harness
 from portbench.tests import tiny
 
-FAULTS = {"refine": ("answer",), "detect": ("answer",),
-          "train": ("unchanged", "half_batch")}
-CASES = [(w["name"], f) for w in harness.load_json(
-    harness.ROOT / "BENCHMARK.json")["workloads"]
-    for f in ("control",) + FAULTS[harness.load_cell(w["name"])["mix"][
-        "mode"]]]
+
+def cases(bench: dict | None = None) -> list:
+    """``(cell, fault)`` for every cell of ``bench`` (``BENCHMARK.json``):
+    the control, then each of its mode's ``FAULTS``."""
+    bench = bench or harness.load_json(harness.ROOT / "BENCHMARK.json")
+    return [(w["name"], f) for w in bench["workloads"]
+            for f in ("control",) + harness.mode_module(
+                harness.load_cell(w["name"], bench)["mix"]).FAULTS]
+
+
+CASES = cases()
 
 
 @pytest.mark.parametrize("cell,fault", CASES)

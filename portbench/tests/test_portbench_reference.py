@@ -8,7 +8,7 @@ import torch
 from portbench import traffic, weights
 from portbench.reference import ococcnet as ref_oc
 from portbench.reference import sst as ref_sst
-from portbench.tests import tiny
+from portbench.tests import tiny, tiny_ococcnet, tiny_sst
 
 
 def _ococc_batch(cfg, seed=3, L=16, B=2):
@@ -30,7 +30,7 @@ def _port_ococc(cfg, params):
 
 
 def test_budget_keeps_what_the_port_packs():
-    cfg = tiny.ococcnet_config()
+    cfg = tiny_ococcnet.config()
     params = weights.draw(ref_oc.param_specs(cfg), 1, "cpu")
     model = _port_ococc(cfg, params)
     _, t = _ococc_batch(cfg)
@@ -50,7 +50,7 @@ def test_budget_keeps_what_the_port_packs():
 
 
 def test_refine_matches_port():
-    cfg = tiny.ococcnet_config()
+    cfg = tiny_ococcnet.config()
     params = weights.draw(ref_oc.param_specs(cfg), 2, "cpu")
     model = _port_ococc(cfg, params).eval()
     tr, t = _ococc_batch(cfg, seed=5)
@@ -98,7 +98,7 @@ def test_train_steps_match_port():
     from objectcentricocccompletion_torch.training.optim import \
         make_optimizer
     from portbench.modes import port_config
-    cfg = tiny.ococcnet_config()
+    cfg = tiny_ococcnet.config()
     params = weights.draw(ref_oc.param_specs(cfg), 4, "cpu")
     model = _port_ococc(cfg, params)
     pc = OcOccNetConfig(**port_config(cfg))
@@ -143,7 +143,7 @@ def test_gradients_match_port_with_a_one_point_frame():
     that the reference's group maximum once halved."""
     from objectcentricocccompletion_torch.data.tracklet import TrackletBatch
     from objectcentricocccompletion_torch.models.layers import DropoutKeys
-    cfg = tiny.ococcnet_config()
+    cfg = tiny_ococcnet.config()
     params = weights.draw(ref_oc.param_specs(cfg), 4, "cpu")
     model = _port_ococc(cfg, params)
     mix = dict(tiny.cell("ococcnet.train")["mix"])
@@ -174,7 +174,7 @@ def test_adamw_step_matches_port_optimizer():
     on a decayed weight and two leaves without decay."""
     from objectcentricocccompletion_torch.training.optim import \
         make_optimizer, set_lr
-    cfg = tiny.ococcnet_config()
+    cfg = tiny_ococcnet.config()
     g = torch.Generator().manual_seed(5)
     leaves = {n: torch.nn.Parameter(torch.randn(*shape, generator=g))
               for n, shape in (("enc.Dense_0.weight", (8, 4)),
@@ -217,7 +217,7 @@ def _sst_frame(cfg, seed=3):
 def test_sst_voxels_and_windows_match_port():
     from objectcentricocccompletion_torch.ops import voxelize as vx
     from objectcentricocccompletion_torch.ops import window as win
-    cfg = tiny.sst_config()
+    cfg = tiny_sst.config()
     s = cfg["sst"]
     pts, mask = _sst_frame(cfg)
     # a budget under the frame's pillars: the cut binds
@@ -244,7 +244,7 @@ def test_sst_detect_matches_port():
     from objectcentricocccompletion_torch.models.sst_detector import (
         SSTDetector, SSTDetectorConfig)
     from portbench.modes import detect, port_config
-    cfg = tiny.sst_config()
+    cfg = tiny_sst.config()
     a = port_config(cfg["anchors"])
     a["sizes"] = tuple(map(tuple, a["sizes"]))
     model = SSTDetector(SSTDetectorConfig(
@@ -264,7 +264,7 @@ def test_sst_detect_matches_port():
 
 
 def test_sst_two_levels_split_by_occupancy():
-    cfg = tiny.sst_config()
+    cfg = tiny_sst.config()
     s = dict(cfg["sst"], small_capacity=4)
     pts, mask = _sst_frame(cfg)
     v = ref_sst.voxelize(pts, mask, s)

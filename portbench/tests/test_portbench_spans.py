@@ -16,25 +16,27 @@ from portbench.reference import sst as ref
 from portbench.tests import tiny
 
 BENCH = harness.load_json(harness.ROOT / "BENCHMARK.json")
-# each metric read from the program's tracer: the span or the two counters
-SOURCES = {
-    "layout_ms": "ococcnet.layout", "encode_ms": "ococcnet.encode",
-    "temporal_ms": "ococcnet.temporal",
-    "occ_decoder_ms": "ococcnet.occ_decoder", "h2d_ms": "train.h2d",
-    "forward_ms": "train.forward", "backward_ms": "train.backward",
-    "optimizer_ms": "train.optimizer", "voxelize_ms": "sst.voxelize",
-    "blocks_ms": "sst.blocks", "neck_ms": "sst.neck", "head_ms": "sst.head",
-    "point_fill": ("ococcnet.points_kept", "ococcnet.point_slots"),
-    "frame_fill": ("ococcnet.frames_nonempty", "ococcnet.frame_slots"),
-    "token_fill": ("sst.tokens", "sst.token_slots"),
-}
-METRICS = [m["name"] for m in BENCH["per_layer"]
-           if m["name"].split(".")[0] in SOURCES]
+
+
+def source(metric: str):
+    """The span, or the ``(useful, slots)`` counters, that the metric's
+    reader takes from the program's tracer (its ``SOURCE``); None for a
+    reader of anything else."""
+    return getattr(harness.reader_module(metric), "SOURCE", None)
+
+
+METRICS = [m["name"] for m in BENCH["per_layer"] if source(m["name"])]
 
 
 def test_every_source_has_a_metric():
-    assert len(METRICS) == 16
-    assert {m.split(".")[0] for m in METRICS} == set(SOURCES)
+    """Every reader that takes the program's spans or counters declares
+    what it takes, and each of them reads a metric of ``BENCHMARK.json``."""
+    tracer = {p.stem for p in (harness.HERE / "metrics").glob("*.py")
+              if "portbench.spans" in p.read_text()}
+    declared = {p.stem for p in (harness.HERE / "metrics").glob("*.py")
+                if source(p.stem)}
+    assert tracer == declared and declared
+    assert {m.split(".")[0] for m in METRICS} == declared
 
 
 def _snapshot(spans=None, counters=None):
@@ -47,7 +49,7 @@ def test_reader(metric, monkeypatch):
     from objectcentricocccompletion_torch.utils import profiling
     read = harness.reader(metric)
     ctx = types.SimpleNamespace(calls=4)
-    src = SOURCES[metric.split(".")[0]]
+    src = source(metric)
     # a session that recorded nothing
     with profile(activities=[ProfilerActivity.CPU]):
         pass

@@ -241,11 +241,13 @@ def train_batch(tr: Tracklets, ids: list, L: int) -> dict:
                 occ_score=tr.occ_score[idx])
 
 
-def make_frames(mix: dict, max_points: int, pc_range, seed: int, device
-                ) -> list:
+def make_frames(mix: dict, max_points: int, pc_range, seed: int, device,
+                labels: bool = False) -> list:
     """``mix["frames"]`` LiDAR frames in ``max_points`` slots: ``(points
     [max_points, 3 + feat_dim], mask [max_points])`` each, drawn on
-    ``device`` by casting the rays of a spinning LiDAR into a scene.
+    ``device`` by casting the rays of a spinning LiDAR into a scene. With
+    ``labels`` each frame also carries its objects' boxes and classes
+    (``object_boxes``); the frames are the same.
 
     The sensor (``mix["lidar"]``) sits ``height_m`` over flat ground at
     the origin and fires ``beams`` x ``azimuths`` rays, the beams evenly
@@ -274,6 +276,8 @@ def make_frames(mix: dict, max_points: int, pc_range, seed: int, device
                           for _ in range(n)], dtype=torch.float32,
                          device=dev)
     N, fd = len(sizes), mix["feat_dim"]
+    classes = torch.tensor([i for i, n in enumerate(obj["counts"])
+                            for _ in range(n)], device=dev)
     out = []
     for _ in range(mix["frames"]):
         phi = (torch.arange(A, device=dev)[None]
@@ -298,6 +302,7 @@ def make_frames(mix: dict, max_points: int, pc_range, seed: int, device
         ctr = torch.stack([torch.cos(ang), torch.sin(ang)], -1) * rng.to(
             dev, torch.float32)[:, None]
         yaw = _uniform(g, (N,), -math.pi, math.pi, dev)
+        boxes = object_boxes(ctr, yaw, sizes) if labels else None
         for k in range(N):
             cy, sy = torch.cos(yaw[k]), torch.sin(yaw[k])
             # the ray from the origin in the box's frame
@@ -335,5 +340,41 @@ def make_frames(mix: dict, max_points: int, pc_range, seed: int, device
         points = torch.zeros((max_points, 3 + fd), device=dev)
         points[:n] = torch.cat([pts, feats], -1)
         mask = torch.arange(max_points, device=dev) < n
-        out.append((points, mask))
+        out.append((points, mask) if boxes is None else
+                   (points, mask, boxes, classes))
+    return out
+
+
+def object_boxes(ctr: torch.Tensor, yaw: torch.Tensor, sizes: torch.Tensor
+                 ) -> torch.Tensor:
+    """The objects of ``make_frames`` as the port's boxes ``[N, 7]``: ``(x,
+    y, z_bottom, w, l, h, yaw)``, whose ``l`` lies along the angle pi/2 -
+    yaw and ``w`` across it (``core/boxes.py::corners_3d``: the box frame
+    turned by -yaw). An object ``[length, width, height]`` long along its
+    heading ``phi`` stands on the ground (z = 0): its box has ``w`` its
+    width, ``l`` its length and the yaw pi/2 - phi, in [-pi, pi)."""
+    turned = torch.remainder(math.pi / 2 - yaw + math.pi, 2 * math.pi) \
+        - math.pi
+    return torch.cat([ctr, torch.zeros_like(ctr[:, :1]), sizes[:, 1:2],
+                      sizes[:, 0:1], sizes[:, 2:3], turned[:, None]], -1)
+
+
+def frame_labels(boxes: torch.Tensor, classes: torch.Tensor, pc_range,
+                 max_gt: int) -> dict:
+    """A frame's training labels: the boxes whose centre lies inside
+    ``pc_range`` (x and y), in order, padded to ``max_gt``: ``gt_boxes
+    [max_gt, 7]``, ``gt_labels [max_gt]`` int32 (each box's size row),
+    ``gt_valid [max_gt]``."""
+    xy = boxes[:, :2]
+    lo = torch.tensor(pc_range[:2], device=xy.device)
+    hi = torch.tensor(pc_range[3:5], device=xy.device)
+    keep = ((xy >= lo) & (xy < hi)).all(-1)
+    b, c = boxes[keep][:max_gt], classes[keep][:max_gt]
+    n = len(b)
+    out = dict(gt_boxes=torch.zeros(max_gt, 7, device=xy.device),
+               gt_labels=torch.zeros(max_gt, dtype=torch.int32,
+                                     device=xy.device),
+               gt_valid=torch.arange(max_gt, device=xy.device) < n)
+    out["gt_boxes"][:n] = b
+    out["gt_labels"][:n] = c.to(torch.int32)
     return out
